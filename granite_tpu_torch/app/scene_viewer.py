@@ -1,0 +1,738 @@
+"""SceneViewerApplication — the deferred HDR viewer on PyTorch/CUDA (port
+of the deferred + HDR subset of granite_tpu/app/scene_viewer.py).
+
+Graph (swapchain_updated): shadow-main -> gbuffer -> lighting ->
+bloom-threshold / luminance / bloom-down0-3 / bloom-up0-1 -> tonemap ->
+sRGB backbuffer.  Kernels: B1 for the sun shadow map and the clustered
+light shadow atlas, B2 + B3 for the G-buffer, B3 + B4 for lighting.
+Config knobs keep the reference's config.json names; a knob value the
+slice does not implement raises NotImplementedError.
+
+Run:
+  python -m granite_tpu_torch.app.scene_viewer --bench-scene \
+      --config cfg.json --width 1920 --height 1080 --frames 12 \
+      --device cuda --png-path out.png
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from granite_tpu.math.frustum import Frustum
+from granite_tpu.math.muglm import quat_from_axis_angle, quat_rotate
+from granite_tpu.scene.camera import FPSCamera
+from granite_tpu.scene.scene import (
+    RENDERABLE_CASTS_SHADOW, RENDERABLE_OPAQUE, RENDERABLE_TRANSPARENT,
+    Scene,
+)
+from granite_tpu.scene.scene_formats import (
+    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, SceneInfo,
+)
+from granite_tpu.utils.logging import LOGI, LOGW
+
+from ..core.device import resolve_device
+from ..graph.render_graph import (
+    AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
+)
+from ..ops import hdr as HDR
+from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
+from ..ops.light_shadows import assign_slices, pack_atlas
+from ..ops.shadow import directional_shadow_matrix, shadow_uv_transform
+from ..ops.srgb import encode_rgba8
+from ..renderer.environment import Environment, procedural_sky_equirect
+from ..renderer.render_context import RenderContext
+from ..renderer.scene_renderer import (
+    PackedScene, fused_raster_surface, pack_scene, render_shadow_map,
+    shade_surface_fused, transform_vertices, transparent_composite,
+)
+from .headless import headless_main
+
+_MAPPING = {
+    "renderer": "renderer", "msaa": "msaa",
+    "directionalLightShadows": "directional_light_shadows",
+    "directionalLightShadowsCascaded": "directional_light_cascaded_shadows",
+    "directionalLightShadowsVSM": "directional_light_shadows_vsm",
+    "clusteredLightsShadows": "clustered_lights_shadows",
+    "clusteredLightsShadowsVSM": "clustered_lights_shadows_vsm",
+    "clusteredLightsShadowsResolution": "clustered_lights_shadow_resolution",
+    "clusteredLightsShadowsHalfRes": "clustered_lights_shadows_half_res",
+    "ssao": "ssao", "ssr": "ssr", "volumetricFog": "volumetric_fog",
+    "volumetricFogRegions": "volumetric_fog_regions",
+    "volumetricDecals": "volumetric_decals",
+    "volumetricDiffuse": "volumetric_diffuse",
+    "volumetricDiffuseResolution": "volumetric_diffuse_resolution",
+    "volumetricDiffuseFaceResolution": "volumetric_diffuse_face_resolution",
+    "textureStreaming": "texture_streaming",
+    "materialTileSampler": "material_tile_sampler",
+    "materialTextures": "material_textures",
+    "envTileSampler": "env_tile_sampler",
+    "envSpecularHalfRes": "env_specular_half_res",
+    "fusedShade": "fused_shade", "rasterMaxVisible": "raster_max_visible",
+    "binPlanCache": "bin_plan_cache", "meshEncoding": "mesh_encoding",
+    "shadowTermHalfRes": "shadow_term_half_res",
+    "textureBudgetMB": "texture_budget_mb",
+    "renderTargetFp16": "render_target_fp16",
+    "rescaleScene": "rescale_scene",
+    "resolutionScaleSharpen": "resolution_scale_sharpen",
+    "forwardDepthPrepass": "forward_depth_prepass",
+    "PCFKernelWide": "pcf_kernel_wide", "hdrBloom": "hdr_bloom",
+    "hdrBloomDynamicExposure": "hdr_bloom_dynamic_exposure",
+    "hdrBloomDepth": "hdr_bloom_depth",
+    "shadowMapResolution": "shadow_map_resolution",
+    "resolutionScale": "resolution_scale", "postAA": "post_aa",
+    "lodBias": "lod_bias", "ocean": "ocean", "terrain": "terrain",
+    "showUi": "show_ui", "occlusionCulling": "occlusion_culling",
+}
+
+# Vulkan-pipeline knobs the reference's design satisfies by construction;
+# accepted and logged, as the JAX viewer does.
+_BY_DESIGN = ("mergeSubpasses", "useTransientColor",
+              "useTransientDepthStencil", "renderGraphForceSingleQueue",
+              "queueWaitOnSubmission", "useAsyncComputePost",
+              "forceNoSubgroups", "forceNoSubgroupShuffle",
+              "forceNoSubgroupSizeControl", "instanceDeferredLights",
+              "timestamp")
+
+
+def _flag(v) -> str:
+    return str(v).lower()
+
+
+@dataclass
+class ViewerConfig:
+    """config.json knobs, the JAX viewer's names and defaults."""
+    renderer: str = "forward"
+    msaa: int = 1
+    directional_light_shadows: bool = True
+    directional_light_cascaded_shadows: bool = False
+    directional_light_shadows_vsm: bool = False
+    clustered_lights_shadows: bool = True
+    clustered_lights_shadows_vsm: bool = False
+    clustered_lights_shadow_resolution: int = 512
+    clustered_lights_shadows_half_res: bool = True
+    ssao: bool = False
+    ssr: bool = False
+    volumetric_fog: bool = False
+    volumetric_fog_regions: bool = False
+    volumetric_decals: bool = False
+    volumetric_diffuse: bool = False
+    volumetric_diffuse_resolution: int = 8
+    volumetric_diffuse_face_resolution: int = 8
+    texture_streaming: bool = False
+    shadow_term_half_res: str = "false"
+    material_tile_sampler: str = "auto"
+    material_textures: bool = True
+    env_tile_sampler: bool = True
+    env_specular_half_res: bool = False
+    fused_shade: str = "auto"
+    raster_max_visible: int | str = 0
+    bin_plan_cache: str = "false"
+    mesh_encoding: str = "classic"
+    texture_budget_mb: float = 0.0
+    render_target_fp16: bool = False
+    rescale_scene: bool = False
+    resolution_scale_sharpen: bool = True
+    forward_depth_prepass: bool = False
+    pcf_kernel_wide: bool = False
+    hdr_bloom: bool = True
+    hdr_bloom_dynamic_exposure: bool = True
+    hdr_bloom_depth: int = 6
+    shadow_map_resolution: float = 2048.0
+    resolution_scale: float = 1.0
+    post_aa: str = "none"
+    lod_bias: float = 0.0
+    ocean: bool = False
+    terrain: bool = False
+    show_ui: bool = False
+    occlusion_culling: bool = False
+    unsupported: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_json(cls, path: str) -> "ViewerConfig":
+        cfg = cls()
+        with open(path) as f:
+            doc = json.load(f)
+        for k, v in doc.items():
+            if k in _MAPPING:
+                setattr(cfg, _MAPPING[k], v)
+            elif k in _BY_DESIGN:
+                LOGI("config key '%s'=%s satisfied by design", k, v)
+            else:
+                cfg.unsupported[k] = v
+                LOGW("config key '%s' not yet supported; ignored", k)
+        return cfg
+
+    def check_slice(self) -> None:
+        """Raise NotImplementedError for knob values outside this port
+        slice (the deferred HDR path with the kernel route)."""
+        need = {
+            "renderer": ("deferred",), "msaa": (1,),
+            "directional_light_cascaded_shadows": (False,),
+            "directional_light_shadows_vsm": (False,),
+            "clustered_lights_shadows_vsm": (False,),
+            "ssao": (False,), "ssr": (False,), "volumetric_fog": (False,),
+            "volumetric_fog_regions": (False,),
+            "volumetric_decals": (False,), "volumetric_diffuse": (False,),
+            "texture_streaming": (False,), "env_tile_sampler": (True,),
+            "env_specular_half_res": (False,), "mesh_encoding": ("classic",),
+            "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
+            "resolution_scale": (1.0,), "post_aa": ("none",),
+            "ocean": (False,), "terrain": (False,), "show_ui": (False,),
+            "occlusion_culling": (False,), "rescale_scene": (False,),
+        }
+        for name, allowed in need.items():
+            if getattr(self, name) not in allowed:
+                raise NotImplementedError(
+                    f"config {name}={getattr(self, name)!r} is not part of "
+                    f"the port yet (supported: {allowed})")
+        # The port always takes the kernel route (B3 samplers, B4 shade).
+        for name in ("material_tile_sampler", "fused_shade"):
+            if _flag(getattr(self, name)) not in ("auto", "true"):
+                raise NotImplementedError(
+                    f"config {name}={getattr(self, name)!r}: the port has "
+                    "only the kernel route")
+        if _flag(self.bin_plan_cache) != "false":
+            raise NotImplementedError("binPlanCache is not ported")
+        if not isinstance(self.raster_max_visible, int):
+            raise NotImplementedError("rasterMaxVisible takes an int in the "
+                                      "port (0 = no compaction)")
+
+
+class SceneViewerApplication:
+    CLUSTER_Z_SLICES = 32
+    CLUSTER_TILE = 64
+    LIGHT_CAPACITY = 32
+
+    @staticmethod
+    def add_cli(parser) -> None:
+        parser.add_argument("--config", type=str, default=None,
+                            help="config.json path (reference schema)")
+        parser.add_argument("--bench-scene", action="store_true",
+                            dest="bench_scene",
+                            help="use the Sponza-class synthetic scene "
+                                 "(default: the golden images' test scene)")
+
+    def __init__(self, args=None, device="cuda"):
+        """args: namespace with `config` (path or None) and `bench_scene`;
+        device: 'cuda' (raises without a card) or 'cpu'."""
+        self.device = resolve_device(device)
+        self.config = (ViewerConfig.from_json(args.config)
+                       if args is not None and getattr(args, "config", None)
+                       else ViewerConfig())
+        self.config.check_slice()
+        if args is not None and getattr(args, "bench_scene", False):
+            from .bench_scene import build_bench_scene
+            info = build_bench_scene()
+            LOGI("Using Sponza-class bench scene")
+        else:
+            from .bench_scene import build_default_test_scene
+            info = build_default_test_scene()
+            LOGI("Using procedural test scene")
+        self.info = info
+        self.scene = self._build_runtime_scene(info)
+        self.packed: PackedScene = pack_scene(info, device=self.device)
+        self.camera = self._frame_scene_camera()
+        self.context = RenderContext()
+        self.graph = RenderGraph()
+        self._history = None
+        self.width = self.height = 0
+        self._sun_dir = np.array([0.35, 0.9, 0.25], np.float32)
+        self._sun_dir /= np.linalg.norm(self._sun_dir)
+        self._sun_color = np.array([3.0, 2.8, 2.5], np.float32)
+        sky = dict(sun_dir=tuple(float(v) for v in self._sun_dir),
+                   sun_color=tuple(float(v) for v in self._sun_color))
+        self.environment = Environment(procedural_sky_equirect(128, **sky),
+                                       sky_params=sky, device=self.device)
+        self._param_cache = None
+        self._static_shadow_cache = None
+        self._orbit_cache = None
+        self.raster_stats: dict = {}
+
+    # -- scene ----------------------------------------------------------------
+    def _build_runtime_scene(self, info: SceneInfo) -> Scene:
+        s = Scene()
+        parent = {c: i for i, nd in enumerate(info.nodes)
+                  for c in nd.children}
+        for i, nd in enumerate(info.nodes):
+            s.create_node(parent=parent.get(i, -1),
+                          translation=nd.translation, rotation=nd.rotation,
+                          scale=nd.scale)
+        # renderable order must match pack_scene's instance order
+        for i, nd in enumerate(info.nodes):
+            for mesh_idx in nd.meshes:
+                md = info.meshes[mesh_idx]
+                mat = info.materials[md.material] if (
+                    0 <= md.material < len(info.materials)) else None
+                transparent = mat is not None and \
+                    mat.alpha_mode == ALPHA_MODE_BLEND
+                flags = RENDERABLE_CASTS_SHADOW | (
+                    RENDERABLE_TRANSPARENT if transparent
+                    else RENDERABLE_OPAQUE)
+                s.add_renderable(i, mesh_idx, flags, md.aabb_min,
+                                 md.aabb_max)
+        s.update_transform_tree()
+        return s
+
+    def _frame_scene_camera(self) -> FPSCamera:
+        """Camera looking at the scene bounds from above, infinite far."""
+        cam = FPSCamera()
+        self.scene.update_cached_transforms()
+        mn = self.scene.r_world_min.min(axis=0)
+        mx = self.scene.r_world_max.max(axis=0)
+        center = 0.5 * (mn + mx)
+        radius = max(0.5 * float(np.linalg.norm(mx - mn)), 1e-3)
+        eye = center + np.array([0.6, 0.45, 0.9]) * radius * 1.2
+        cam.look_at(eye, center)
+        cam.set_depth_range(radius * 1e-3, 0.0)   # infinite far
+        return cam
+
+    def _t(self, a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    # -- graph ------------------------------------------------------------------
+    def swapchain_updated(self, width: int, height: int) -> None:
+        self.width, self.height = width, height
+        self.camera.set_aspect(width / height)
+        self._has_lights = any(
+            nd.light is not None and self.info.lights[nd.light].type != 0
+            for nd in self.info.nodes)
+        self._has_transparent = bool(
+            (self.packed.obj_flags & RENDERABLE_TRANSPARENT).any())
+        zn = max(self.camera.znear, 1e-3)
+        zf = self.camera.zfar if self.camera.zfar > 0 else 1000.0
+        self._cluster_range = (zn, zf)
+        self._build_light_shadow_atlas()
+        g = self.graph
+        g.reset()
+        g.set_backbuffer_dimensions(width, height)
+
+        def rel(scale, channels, dtype=torch.float32):
+            return AttachmentInfo(SizeClass.SWAPCHAIN_RELATIVE, scale, scale,
+                                  channels=channels, dtype=dtype)
+
+        use_shadow = self.config.directional_light_shadows
+        if use_shadow:
+            s = int(self.config.shadow_map_resolution)
+            g.add_pass("shadow-main", Queue.GRAPHICS) \
+                .add_external_input("world") \
+                .add_depth_stencil_output(
+                    "shadow-depth", AttachmentInfo(SizeClass.ABSOLUTE, s, s,
+                                                   channels=1)) \
+                .set_execute(self._shadow_pass)
+        g.add_pass("gbuffer", Queue.GRAPHICS) \
+            .add_external_input("world") \
+            .add_external_input("normal_mats") \
+            .add_color_output("g-base", rel(1, 3)) \
+            .add_color_output("g-normal", rel(1, 3)) \
+            .add_color_output("g-pbr", rel(1, 2)) \
+            .add_color_output("g-emissive", rel(1, 3)) \
+            .add_color_output("g-pos", rel(1, 3)) \
+            .add_depth_stencil_output("depth-main", rel(1, 1)) \
+            .add_color_output("g-covered", rel(1, 1, torch.bool)) \
+            .set_execute(self._gbuffer_pass)
+        light = g.add_pass("lighting", Queue.GRAPHICS)
+        for name in ("g-base", "g-normal", "g-pbr", "g-emissive", "g-pos",
+                     "g-covered", "depth-main"):
+            light.add_attachment_input(name)
+        light.add_external_input("world").add_external_input("normal_mats") \
+            .add_color_output("hdr", rel(1, 3))
+        if use_shadow:
+            light.add_texture_input("shadow-depth")
+        light.set_execute(self._lighting_pass)
+        if self.config.hdr_bloom:
+            self._add_hdr_chain(g, rel)
+        tm = g.add_pass("tonemap", Queue.GRAPHICS) \
+            .add_texture_input("hdr") \
+            .add_color_output("backbuffer",
+                              AttachmentInfo(channels=4, dtype=torch.uint8))
+        if self.config.hdr_bloom:
+            tm.add_texture_input("bloom-final")
+            tm.add_texture_input("luminance")
+        tm.set_execute(self._tonemap_pass)
+        g.set_backbuffer_source("backbuffer")
+        g.bake()
+        g.log()
+        self._history = g.initial_history(self.device)
+        self._param_cache = None
+        self._orbit_cache = None
+
+    def _add_hdr_chain(self, g, rel) -> None:
+        """setup_hdr_postprocess: threshold at 1/2 res -> 4 downsamples
+        (the first with temporal feedback) -> 2 upsamples; luminance with
+        temporal smoothing."""
+        depth = max(0, min(int(self.config.hdr_bloom_depth), 6))
+        thresh = "bloom-final" if depth == 0 else "bloom-thresh"
+        g.add_pass("bloom-threshold", Queue.GRAPHICS) \
+            .add_texture_input("hdr") \
+            .add_history_input("luminance") \
+            .add_color_output(thresh, rel(0.5, 4)) \
+            .set_execute(self._make_bloom_threshold(thresh))
+        g.add_pass("luminance", Queue.ASYNC_COMPUTE) \
+            .add_texture_input(thresh) \
+            .add_history_input("luminance") \
+            .add_storage_output("luminance", BufferInfo((), torch.float32)) \
+            .set_execute(self._make_luminance(thresh))
+        prev = thresh
+        for i, s in enumerate([0.25, 0.125, 0.0625, 0.03125][:depth]):
+            name = "bloom-final" if depth == i + 1 else f"bloom-d{i}"
+            p = g.add_pass(f"bloom-down{i}", Queue.COMPUTE) \
+                .add_texture_input(prev) \
+                .add_color_output(name, rel(s, 4))
+            if i == 0:
+                p.add_history_input(name)
+            p.set_execute(self._make_bloom_down(i, prev, name))
+            prev = name
+        for j, s in enumerate([0.0625, 0.125][:max(depth - 4, 0)]):
+            name = "bloom-final" if depth == 5 + j else f"bloom-u{j}"
+            g.add_pass(f"bloom-up{j}", Queue.COMPUTE) \
+                .add_texture_input(prev) \
+                .add_color_output(name, rel(s, 4)) \
+                .set_execute(self._make_bloom_up(prev, name))
+            prev = name
+
+    # -- passes -----------------------------------------------------------------
+    def _shadow_pass(self, ctx):
+        return {"shadow-depth": ctx.params["static_shadow_depth"]}
+
+    def _transform(self, ctx):
+        return transform_vertices(self.packed, ctx.input("world"),
+                                  ctx.input("normal_mats"),
+                                  ctx.params["view_proj"])
+
+    def _resolved_max_visible(self):
+        mv = self.config.raster_max_visible
+        return mv if mv > 0 else None
+
+    def _gbuffer_pass(self, ctx):
+        p = ctx.params
+        clip, wpos, wnrm, wtan = self._transform(ctx)
+        surf, depth, stats = fused_raster_surface(
+            self.packed, clip, p["object_mask"], wpos, wnrm, wtan,
+            self.width, self.height, lod_bias=self.config.lod_bias,
+            max_visible=self._resolved_max_visible(),
+            material_textures=self.config.material_textures)
+        self.raster_stats["gbuffer"] = stats
+        return {"g-base": surf["base_color"], "g-normal": surf["normal"],
+                "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
+                                     dim=-1),
+                "g-emissive": surf["emissive"], "g-pos": surf["pos"],
+                "depth-main": depth, "g-covered": surf["covered"]}
+
+    def _shadow_half_res(self) -> bool:
+        v = self.config.shadow_term_half_res
+        if isinstance(v, bool):
+            return v
+        return _flag(v) == "true" or (_flag(v) == "auto"
+                                      and self.device.type == "cuda")
+
+    def light_kwargs(self, params, shadow_map):
+        """Keyword arguments of shade_surface_fused for this frame."""
+        p = params
+        kw = dict(shadow_map=shadow_map,
+                  shadow_uv_mat=p["shadow_uv_mat"],
+                  width=self.width, height=self.height, background=None,
+                  shadow_half_res=self._shadow_half_res(),
+                  env={"strips": self.environment.strips,
+                       "sh": self.environment.sh,
+                       "levels": self.environment.num_levels,
+                       "sky_params": self.environment.sky_params})
+        if self._has_lights:
+            zn, zf = self._cluster_range
+            kw.update(lights=p["lights"], z_masks=p["z_masks"],
+                      tile_masks=p["tile_masks"], z_near=zn, z_far=zf,
+                      cluster_shadows=self._cluster_shadow)
+        return kw
+
+    def _lighting_pass(self, ctx):
+        surf = {"base_color": ctx.input("g-base"),
+                "normal": ctx.input("g-normal"),
+                "metallic": ctx.input("g-pbr")[..., 0],
+                "roughness": ctx.input("g-pbr")[..., 1],
+                "emissive": ctx.input("g-emissive"),
+                "pos": ctx.input("g-pos"),
+                "covered": ctx.input("g-covered")}
+        kw = self.light_kwargs(
+            ctx.params, ctx.input("shadow-depth")
+            if self.config.directional_light_shadows else None)
+        color = shade_surface_fused(surf, ctx.params, **kw)
+        if self._has_transparent:
+            # Transparent queue, forward-shaded over the lit frame.
+            clip, wpos, wnrm, wtan = self._transform(ctx)
+            for k in ("background", "width", "height"):
+                kw.pop(k)
+            color = transparent_composite(
+                self.packed, clip, ctx.input("depth-main"), color,
+                ctx.params["transparent_mask"], ctx.params, self.width,
+                self.height, world_pos=wpos, world_normal=wnrm,
+                world_tangent=wtan, **kw)
+        return {"hdr": color}
+
+    def _make_bloom_threshold(self, dst: str):
+        def ex(ctx):
+            h, w = ctx.size(dst)
+            avg_lin = torch.exp2(ctx.history("luminance"))
+            return {dst: HDR.bloom_threshold(
+                ctx.input("hdr"), avg_lin, h, w,
+                dynamic_exposure=self.config.hdr_bloom_dynamic_exposure)}
+        return ex
+
+    def _make_luminance(self, src: str):
+        def ex(ctx):
+            return {"luminance": HDR.average_log_luminance(
+                ctx.input(src), ctx.history("luminance"),
+                ctx.params["frame_time"])}
+        return ex
+
+    def _make_bloom_down(self, i: int, src: str, dst: str):
+        def ex(ctx):
+            h, w = ctx.size(dst)
+            return {dst: HDR.bloom_downsample(
+                ctx.input(src), h, w,
+                history=ctx.history(dst) if i == 0 else None,
+                frame_time=ctx.params["frame_time"] if i == 0 else None)}
+        return ex
+
+    def _make_bloom_up(self, src: str, dst: str):
+        def ex(ctx):
+            h, w = ctx.size(dst)
+            return {dst: HDR.bloom_upsample(ctx.input(src), h, w)}
+        return ex
+
+    def _tonemap_pass(self, ctx):
+        bloom = avg_log = None
+        if self.config.hdr_bloom:
+            bloom = ctx.input("bloom-final")
+            if self.config.hdr_bloom_dynamic_exposure:
+                avg_log = ctx.input("luminance")
+        return {"backbuffer": encode_rgba8(
+            HDR.tonemap(ctx.input("hdr"), bloom, avg_log))}
+
+    # -- lights and shadows -----------------------------------------------------
+    def _positional_lights(self):
+        """(node world matrix, LightData) of every point/spot light."""
+        return [(self.scene.world[i], self.info.lights[nd.light])
+                for i, nd in enumerate(self.info.nodes)
+                if nd.light is not None
+                and self.info.lights[nd.light].type in (LIGHT_POINT,
+                                                        LIGHT_SPOT)]
+
+    def _build_light_shadow_atlas(self):
+        """Clustered light shadow atlas, rendered once (kernel B1) from the
+        current pose and cached, as in the reference viewer."""
+        self._cluster_shadow = None
+        if not (self._has_lights and self.config.clustered_lights_shadows):
+            return
+        self.scene.update_transform_tree()
+        self.scene.update_cached_transforms()
+        infos = []
+        for w, light in self._positional_lights():
+            d = -w[:3, 2]
+            infos.append({
+                "pos": w[:3, 3].astype(np.float32),
+                "dir": (d / max(np.linalg.norm(d), 1e-9)).astype(np.float32),
+                "radius": float(light.range if light.range > 0 else 100.0),
+                "outer": float(light.outer_cone),
+                "is_spot": light.type == LIGHT_SPOT})
+        if not infos:
+            return
+        vps, slice_np, kind_np = assign_slices(infos)
+        size = int(self.config.clustered_lights_shadow_resolution)
+        world = self._t(self.scene.world[:self.scene.num_nodes])
+        caster = (self.packed.obj_flags & RENDERABLE_CASTS_SHADOW) != 0
+        mn, mx = self.scene.r_world_min, self.scene.r_world_max
+        slices = []
+        si = 0
+        for li in infos:
+            dist = np.linalg.norm(np.clip(li["pos"], mn, mx) - li["pos"],
+                                  axis=1)
+            mask = self._t(caster & (dist <= li["radius"]), torch.bool)
+            nslices = 1 if li["is_spot"] else 6
+            for f in range(nslices):
+                slices.append(render_shadow_map(self.packed, world,
+                                                vps[si + f], size, mask))
+            si += nslices
+        self._cluster_shadow = {
+            "atlas_flat": pack_atlas(torch.stack(slices)),
+            "vps_np": vps, "size": size,
+            "light_slice_np": slice_np, "light_kind_np": kind_np,
+            "light_pos_np": np.stack([li["pos"] for li in infos]),
+            "num_lights": len(infos), "k": 2,
+            "half_res": bool(self.config.clustered_lights_shadows_half_res)}
+        LOGI("Clustered shadow atlas: %d lights, %d slices at %d^2",
+             len(infos), len(slices), size)
+
+    def _collect_lights(self):
+        pos, col, rad, dirs, inner, outer, spot = [], [], [], [], [], [], []
+        for w, light in self._positional_lights():
+            pos.append(w[:3, 3])
+            col.append(light.color * light.intensity)
+            rad.append(light.range if light.range > 0 else 100.0)
+            dirs.append(-w[:3, 2] / max(np.linalg.norm(w[:3, 2]), 1e-9))
+            inner.append(light.inner_cone)
+            outer.append(light.outer_cone)
+            spot.append(1.0 if light.type == LIGHT_SPOT else 0.0)
+        if not pos:
+            return None
+        cap = min(self.LIGHT_CAPACITY, max(8, -(-len(pos) // 8) * 8))
+        return pack_lights(np.asarray(pos), np.asarray(col),
+                           np.asarray(rad), np.asarray(dirs),
+                           np.asarray(inner), np.asarray(outer),
+                           np.asarray(spot), capacity=cap,
+                           device=self.device)
+
+    # -- frame ------------------------------------------------------------------
+    def sun_shadow_view(self):
+        """(light view-proj fitted to the scene bounds, static casters
+        inside it as an (objects,) bool mask)."""
+        scene = self.scene
+        mn = scene.r_world_min.min(axis=0)
+        mx = scene.r_world_max.max(axis=0)
+        light_vp = directional_shadow_matrix(self._sun_dir, mn, mx)
+        mask = np.zeros(self.packed.num_objects, bool)
+        mask[scene.gather_visible_static_shadow_renderables(
+            Frustum(light_vp))] = True
+        return light_vp, mask
+
+    def _view_params(self, ctx: RenderContext, lights) -> dict:
+        out = {"view_proj": self._t(ctx.view_projection),
+               "inv_view_proj": self._t(np.linalg.inv(
+                   ctx.view_projection).astype(np.float32)),
+               "view": self._t(ctx.view),
+               "camera_pos": self._t(ctx.camera_pos)}
+        if lights is not None:
+            zn, zf = self._cluster_range
+            out["z_masks"] = bin_lights_z(lights, out["view"],
+                                          self.CLUSTER_Z_SLICES, zn, zf)
+            out["tile_masks"] = bin_lights_tiles(
+                lights, out["view_proj"], self.width, self.height,
+                self.CLUSTER_TILE)
+        return out
+
+    def _frame_sig(self, frame_time: float):
+        return (self.camera.position.tobytes(),
+                self.camera.rotation.tobytes(), float(frame_time))
+
+    def build_frame_params(self, frame_time: float) -> dict:
+        """Host-side frame prep: culling, shadow matrices, the cached
+        static sun shadow map (kernel B1), light binning, uploads."""
+        scene = self.scene
+        scene.update_transform_tree()
+        self.context.set_camera(self.camera)
+        vis = scene.gather_visible_opaque_renderables(self.context.frustum)
+        object_mask = np.zeros(self.packed.num_objects, bool)
+        object_mask[vis] = True
+        transparent_mask = np.zeros(self.packed.num_objects, bool)
+        if self._has_transparent:
+            transparent_mask[scene.gather_visible_transparent_renderables(
+                self.context.frustum)] = True
+            object_mask &= ~transparent_mask
+        light_vp, static_mask = self.sun_shadow_view()
+        n = scene.num_nodes
+        world = scene.world[:n]
+        nm = np.linalg.inv(world[:, :3, :3]).transpose(0, 2, 1).astype(
+            np.float32)
+        world_t = self._t(world)
+        params = {
+            "external": {"world": world_t, "normal_mats": self._t(nm)},
+            "sun_dir": self._t(self._sun_dir),
+            "sun_color": self._t(self._sun_color),
+            "object_mask": self._t(object_mask, torch.bool),
+            "transparent_mask": self._t(transparent_mask, torch.bool),
+            "shadow_uv_mat": self._t(shadow_uv_transform(light_vp)),
+            "frame_time": float(frame_time),
+        }
+        if self.config.directional_light_shadows:
+            # Static casters only (the slice has no dynamic casters): the
+            # map re-renders when the light frustum, caster set or caster
+            # transforms change, as in the reference viewer.
+            static_nodes = np.unique(self.packed.obj_node[static_mask])
+            size = int(self.config.shadow_map_resolution)
+            key = (light_vp.tobytes(), static_mask.tobytes(),
+                   world[static_nodes].tobytes(), size)
+            if self._static_shadow_cache is None or \
+                    self._static_shadow_cache[0] != key:
+                depth, stats = render_shadow_map(
+                    self.packed, world_t, light_vp, size,
+                    self._t(static_mask, torch.bool), with_stats=True)
+                self.raster_stats["shadow"] = stats
+                self._static_shadow_cache = (key, depth)
+            params["static_shadow_depth"] = self._static_shadow_cache[1]
+        lights = self._collect_lights() if self._has_lights else None
+        if lights is not None:
+            params["lights"] = lights
+        params.update(self._view_params(self.context, lights))
+        self._param_cache = (self._frame_sig(frame_time), params)
+        return params
+
+    def render_frame(self, frame_time: float, elapsed_time: float):
+        """One frame -> (H, W, 4) uint8 backbuffer on the app's device."""
+        cached = self._param_cache
+        if cached is not None and cached[0] == self._frame_sig(frame_time):
+            params = cached[1]
+        else:
+            params = self.build_frame_params(frame_time)
+        out, self._history = self.graph.execute(params, self._history)
+        return out
+
+    def render_frames_chained(self, frame_time: float, t0: float, n: int,
+                              camera_orbit: float = 0.0):
+        """n frames in a Python loop with no host readback; returns the
+        last backbuffer on the device.  camera_orbit > 0 yaws the camera
+        by that many radians per frame (view params and light bins per
+        frame; culling masks stay at frame 0's, as in the reference's
+        chained bench)."""
+        cached = self._param_cache
+        if cached is None or cached[0] != self._frame_sig(frame_time):
+            self.build_frame_params(frame_time)
+            cached = self._param_cache
+        params = cached[1]
+        okey = (n, camera_orbit, cached[0])
+        if self._orbit_cache is None or self._orbit_cache[0] != okey:
+            self._orbit_cache = (okey, self._orbit_banks(params, n,
+                                                         camera_orbit))
+        out = None
+        for bank in self._orbit_cache[1]:
+            out, self._history = self.graph.execute({**params, **bank},
+                                                    self._history)
+        return out
+
+    def _orbit_banks(self, params: dict, n: int, camera_orbit: float):
+        """Per-frame view params + light bins for the orbiting camera."""
+        saved_pos = self.camera.position.copy()
+        saved_rot = self.camera.rotation.copy()
+        conj = np.array([saved_rot[0], -saved_rot[1], -saved_rot[2],
+                         -saved_rot[3]])
+        banks = []
+        for i in range(n):
+            if camera_orbit == 0.0:
+                banks.append({})
+                continue
+            yaw = quat_from_axis_angle([0.0, 1.0, 0.0], i * camera_orbit)
+            front = quat_rotate(yaw, quat_rotate(conj, [0.0, 0.0, -1.0]))
+            self.camera.position = saved_pos
+            self.camera.look_at(saved_pos, saved_pos + front)
+            ctx = RenderContext()
+            ctx.set_camera(self.camera)
+            banks.append(self._view_params(ctx, params.get("lights")))
+        self.camera.position = saved_pos
+        self.camera.rotation = saved_rot
+        return banks
+
+    def frame_stats(self) -> dict:
+        """Raster counters of the last G-buffer pass and static shadow
+        map as ints (syncs the device)."""
+        return {pass_name: {k: int(v) for k, v in stats.items()}
+                for pass_name, stats in self.raster_stats.items()}
+
+
+def main(argv=None) -> int:
+    return headless_main(SceneViewerApplication, argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,134 @@
+// Kernel B3: per-pixel approximate-trilinear fetch from packed LOD strips.
+//
+// Replaces granite_tpu/ops/tile_sampler.py:_sample_kernel (reached through
+// sample_tiled from scene_renderer._material_shade_tail and
+// environment.sample_environment_tiled), quad_parent mode.  The reference
+// planned texel rects per tile, DMA'd them into VMEM and fetched with
+// one-hot MXU matmuls because per-pixel gathers were slow on the TPU.
+// Here one thread per pixel computes ops/texture.sample_packed_lod:
+// clamp the lod, take floor(lod), find the texel in the level's gutter
+// rows, read its ONE 5C-channel row [t00 t10 t01 t11 | parent], and lerp
+// the bilinear quad toward the parent tap.  bundle < 0 (uncovered) and
+// non-finite coordinates give 0; the output is nan_to_num'd
+// (nan -> 0, +inf -> 1, -inf -> 0).
+//
+// Bound: memory — one random 5C-lane row per pixel (120 B of f16 for the
+// 12 material channels, 80 B of f32 for the environment) against ~10
+// FP32 ops a channel.  Neighbouring pixels read neighbouring texels, so
+// most rows come from L2; the kernel keeps one pass and no staging.
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace granite {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+__device__ __forceinline__ float nan_to_num(float x) {
+  if (isnan(x)) return 0.0f;
+  if (isinf(x)) return x > 0.0f ? 1.0f : 0.0f;
+  return x;
+}
+
+template <typename T, int C>
+__global__ void sample_lod_kernel(const T* __restrict__ strip, int n_bundles,
+                                  int rows, int size,
+                                  const int* __restrict__ bundle,
+                                  const float* __restrict__ u_in,
+                                  const float* __restrict__ v_in,
+                                  const float* __restrict__ lod_in,
+                                  float* __restrict__ out, int n,
+                                  int levels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float* o = out + (size_t)i * C;
+  const int b = bundle[i];
+  const float u = u_in[i];
+  const float v = v_in[i];
+  float lod = lod_in[i];
+  if (b < 0 || b >= n_bundles || !isfinite(u) || !isfinite(v) ||
+      isnan(lod)) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = 0.0f;
+    return;
+  }
+  lod = fminf(fmaxf(lod, 0.0f), (float)(levels - 1));
+  const int l0 = (int)floorf(lod);
+  const float frac = lod - (float)l0;
+  const int level = min(max(l0, 0), levels - 1);
+  const int ls = max(size >> level, 1);
+  const int row0 = 2 * size - ((2 * size) >> level) + level;
+  const float lsf = (float)ls;
+  const float x = u * lsf - 0.5f;
+  const float y = v * lsf - 0.5f;
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  // repeat addressing (the strips' gutters are baked for it)
+  const int x0 = floor_mod((int)x0f, ls);
+  const int y0 = floor_mod((int)y0f, ls);
+  const float fx = x - x0f;
+  const float fy = y - y0f;
+  const T* p = strip + (((size_t)b * rows + (row0 + y0)) * size + x0) *
+                           (size_t)(5 * C);
+  const float gx = 1.0f - fx;
+  const float gy = 1.0f - fy;
+  const float gf = 1.0f - frac;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float q0 = to_f32(p[c]);
+    const float q1 = to_f32(p[C + c]);
+    const float q2 = to_f32(p[2 * C + c]);
+    const float q3 = to_f32(p[3 * C + c]);
+    const float parent = to_f32(p[4 * C + c]);
+    const float top = q0 * gx + q1 * fx;
+    const float bot = q2 * gx + q3 * fx;
+    const float fine = top * gy + bot * fy;
+    o[c] = nan_to_num(fine * gf + parent * frac);
+  }
+}
+
+template <typename T, int C>
+int launch_sample(const void* strip, int n_bundles, int rows, int size,
+                  const int* bundle, const float* u, const float* v,
+                  const float* lod, float* out, int n, int levels,
+                  cudaStream_t stream) {
+  if (n > 0) {
+    const int threads = 256;
+    sample_lod_kernel<T, C><<<(n + threads - 1) / threads, threads, 0,
+                              stream>>>(
+        static_cast<const T*>(strip), n_bundles, rows, size, bundle, u, v,
+        lod, out, n, levels);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace granite
+
+extern "C" int granite_sample_lod(const void* strip, int is_half,
+                                  int n_bundles, int rows, int size,
+                                  int channels, const int* bundle,
+                                  const float* u, const float* v,
+                                  const float* lod, float* out, int n,
+                                  int levels, cudaStream_t stream) {
+  using granite::launch_sample;
+  if (is_half && channels == 12)
+    return launch_sample<__half, 12>(strip, n_bundles, rows, size, bundle, u,
+                                     v, lod, out, n, levels, stream);
+  if (is_half && channels == 4)
+    return launch_sample<__half, 4>(strip, n_bundles, rows, size, bundle, u,
+                                    v, lod, out, n, levels, stream);
+  if (!is_half && channels == 12)
+    return launch_sample<float, 12>(strip, n_bundles, rows, size, bundle, u,
+                                    v, lod, out, n, levels, stream);
+  if (!is_half && channels == 4)
+    return launch_sample<float, 4>(strip, n_bundles, rows, size, bundle, u,
+                                   v, lod, out, n, levels, stream);
+  return (int)cudaErrorInvalidValue;
+}

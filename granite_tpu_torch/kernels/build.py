@@ -1,0 +1,143 @@
+"""Build, load and launch the port's CUDA kernels.
+
+All kernels live in `granite_tpu_torch/csrc/*.cu`, each with a plain C
+entry point that returns `cudaGetLastError()`.  At first use they are
+compiled by nvcc for Hopper (`sm_90a`) into ONE shared library under
+the repository's gitignored `build/` directory and bound with ctypes
+(no PyTorch headers: the build takes seconds, not minutes).  The
+library name carries a hash of the sources and flags, so an edited
+kernel is rebuilt rather than reused.
+
+Every wrapper counts its launches in `LAUNCHES` (a plain int per
+kernel, incremented only where the kernel is launched), so a run can
+show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..core.device import nvcc_path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "granite_tpu_torch"
+
+# --fmad=false: the raster edge/z terms must round like the reference's
+# separate multiply and add (a*(px-ex) + b*(py-ey) + c); a contracted
+# FMA flips coverage of pixels on shared edges.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-lineinfo", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argtypes (every pointer and the stream as c_void_p).
+SIGNATURES = {
+    # B1: starts, huge_starts, packets, huge_rows, depth, tri,
+    #     tiles_x, tiles_y, span_w, span_h, stream
+    "granite_raster_binned": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # B2: starts, huge_starts, packets, n_packet_rows, huge_rows, planes,
+    #     tiles_x, tiles_y, span_w, span_h, has_prev, stream
+    "granite_raster_resolve": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                               _I, _P),
+    # B3: strip, half, n_bundles, rows, size, channels, bundle, u, v, lod,
+    #     out, n_pixels, levels, stream
+    "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                           _I, _P),
+    # B4: planes, n_planes, ph, pw, lights, n_light_cap, tile_masks,
+    #     tm_w, uniforms, k_shadow, has_env, has_lights, has_ao, ambient,
+    #     out, stream
+    "granite_shade_fused": (_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                            _I, _I, _P, _P),
+}
+
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+
+_library = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgranite_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (no-op when the library
+    for these exact sources exists).  Raises on any compiler error."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built (PATH, CUDA_HOME, /usr/local/cuda)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + ".tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources()]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    tmp.replace(out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def launch(kernel_id: str, entry: str, *args) -> None:
+    """Call a kernel's C entry point on the current stream; raise on a
+    non-zero cudaError.  Counts the launch under `kernel_id`."""
+    fn = getattr(library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed to launch: cudaError {err}")
+    LAUNCHES[kernel_id] += 1
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype, device: torch.device,
+          ndim: int | None = None) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-D, expected {ndim}-D")

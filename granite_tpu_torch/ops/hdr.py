@@ -1,0 +1,188 @@
+"""HDR post chain (port of granite_tpu/ops/hdr.py; reference
+renderer/post/hdr.cpp:308 and the bloom/luminance/tonemap shaders).
+
+threshold at 1/2 res (rgb = max(color/lum * (lum - 8*avg), 0),
+a = log2 lum) -> luminance (mean log2 lum clamped to [-3, 2], smoothed
+by 1-0.5^dt) -> 4 bloom downsamples (9 taps at +-1.75 texels, the first
+with temporal feedback 1-0.001^dt) -> 2 upsamples (+-0.875 texels) ->
+Uncharted2 filmic tonemap (white 11.2).  Exact 2:1 and integer ratios
+take the gather-free separable forms, others the bilinear tap form,
+as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .texture import quad_pack2d
+
+LUM_MIN_LOG = -3.0
+LUM_MAX_LOG = 2.0
+
+
+def _sample_bilinear_uv(img, u, v):
+    """Bilinear sample of (H, W, C) at normalized UV, clamp-to-edge."""
+    h, w, C = img.shape
+    packed = quad_pack2d(img)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x).to(torch.int32).clamp(0, w - 1)
+    y0 = torch.floor(y).to(torch.int32).clamp(0, h - 1)
+    fx = (x - x0.to(x.dtype)).clamp(0.0, 1.0)[..., None]
+    fy = (y - y0.to(y.dtype)).clamp(0.0, 1.0)[..., None]
+    quad = packed[y0.long(), x0.long()].reshape(y0.shape + (4, C))
+    return ((quad[..., 0, :] * (1 - fx) + quad[..., 1, :] * fx) * (1 - fy)
+            + (quad[..., 2, :] * (1 - fx) + quad[..., 3, :] * fx) * fy)
+
+
+def _upsample_axis_int(img, f: int, axis: int):
+    """Exact integer-factor bilinear upsample along one axis by fixed
+    phase blends of shifted copies."""
+    img = img.movedim(axis, 0)
+    n = img.shape[0]
+    phases = []
+    for r in range(f):
+        phi = (r + 0.5) / f - 0.5
+        k = -1 if phi < 0 else 0
+        t = phi - k
+        a = torch.cat([img[:1]] * max(-k, 0) + [img[:n - max(-k, 0)]]) \
+            if k < 0 else img
+        b = torch.cat([img[1:], img[-1:]]) if k + 1 == 1 else img
+        phases.append(a * (1 - t) + b * t)
+    out = torch.stack(phases, dim=1).reshape((n * f,) + img.shape[1:])
+    return out.movedim(0, axis)
+
+
+def _downsample2_axis(img, kernel, axis: int):
+    """Stride-2 separable filter over input texels [2o-2 .. 2o+3]."""
+    img = img.movedim(axis, 0)
+    n = img.shape[0]
+    pad = torch.cat([img[:1], img[:1], img, img[-1:], img[-1:]])
+    acc = 0.0
+    for j, w in enumerate(kernel):
+        acc = acc + w * pad[j:j + n:2]
+    return acc.movedim(0, axis)
+
+
+def _upsample2_axis(img, axis: int):
+    """The bloom 2x upsample as two fixed 4-tap phase kernels."""
+    k_even = (0.03125, 0.34375, 0.46875, 0.15625)
+    k_odd = (0.15625, 0.46875, 0.34375, 0.03125)
+    img = img.movedim(axis, 0)
+    n = img.shape[0]
+    pad = torch.cat([img[:1], img[:1], img, img[-1:], img[-1:]])
+    even = sum(w * pad[j:j + n] for j, w in enumerate(k_even))
+    odd = sum(w * pad[j + 1:j + 1 + n] for j, w in enumerate(k_odd))
+    out = torch.stack([even, odd], dim=1).reshape((2 * n,) + img.shape[1:])
+    return out.movedim(0, axis)
+
+
+def _uv_grid(out_h: int, out_w: int, device):
+    u = (torch.arange(out_w, dtype=torch.float32, device=device) + 0.5) \
+        / out_w
+    v = (torch.arange(out_h, dtype=torch.float32, device=device) + 0.5) \
+        / out_h
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return uu, vv
+
+
+def resize_bilinear(img, out_h: int, out_w: int):
+    h, w = img.shape[:2]
+    if out_h == h and out_w == w:
+        return img
+    if h == 2 * out_h and w == 2 * out_w:
+        return img.reshape(out_h, 2, out_w, 2, -1).mean(dim=(1, 3)) \
+            .reshape(out_h, out_w, img.shape[-1])
+    if out_h % h == 0 and out_w % w == 0 and out_h // h == out_w // w:
+        return _upsample_axis_int(
+            _upsample_axis_int(img, out_h // h, 0), out_w // w, 1)
+    uu, vv = _uv_grid(out_h, out_w, img.device)
+    return _sample_bilinear_uv(img, uu, vv)
+
+
+def bloom_threshold(hdr, avg_linear_lum, out_h: int, out_w: int,
+                    dynamic_exposure: bool = True):
+    half = resize_bilinear(hdr, out_h, out_w)
+    lum = half.max(dim=-1).values + 1e-4
+    loglum = torch.log2(lum)
+    color = half / lum[..., None]
+    thresh = lum - (8.0 * avg_linear_lum if dynamic_exposure else 8.0)
+    rgb = (color * thresh[..., None]).clamp_min(0.0)
+    return torch.cat([rgb, loglum[..., None]], dim=-1)
+
+
+def average_log_luminance(threshold_out, old_log_lum, frame_time):
+    avg = threshold_out[..., 3].mean().clamp(LUM_MIN_LOG, LUM_MAX_LOG)
+    lerp = 1.0 - torch.pow(torch.tensor(0.5, device=avg.device),
+                           frame_time)
+    return old_log_lum + (avg - old_log_lum) * lerp
+
+
+_DOWN_TAPS = [(0.25, 0.0, 0.0),
+              (0.0625, -1.75, 1.75), (0.125, 0.0, 1.75),
+              (0.0625, 1.75, 1.75), (0.125, -1.75, 0.0),
+              (0.125, 1.75, 0.0), (0.0625, -1.75, -1.75),
+              (0.125, 0.0, -1.75), (0.0625, 1.75, -1.75)]
+
+_UP_TAPS = [(0.25, 0.0, 0.0),
+            (0.0625, -0.875, 0.875), (0.125, 0.0, 0.875),
+            (0.0625, 0.875, 0.875), (0.125, -0.875, 0.0),
+            (0.125, 0.875, 0.0), (0.0625, -0.875, -0.875),
+            (0.125, 0.0, -0.875), (0.0625, 0.875, -0.875)]
+
+_DOWN2_KERNEL = (0.0625, 0.1875, 0.25, 0.25, 0.1875, 0.0625)
+
+
+def _taps(img, out_h: int, out_w: int, taps):
+    in_h, in_w = img.shape[:2]
+    uu, vv = _uv_grid(out_h, out_w, img.device)
+    acc = 0.0
+    for wgt, dx, dy in taps:
+        acc = acc + wgt * _sample_bilinear_uv(img, uu + dx / in_w,
+                                              vv + dy / in_h)
+    return acc
+
+
+def bloom_downsample(img, out_h: int, out_w: int, history=None,
+                     frame_time=None):
+    in_h, in_w = img.shape[:2]
+    if in_h == 2 * out_h and in_w == 2 * out_w:
+        out = _downsample2_axis(
+            _downsample2_axis(img, _DOWN2_KERNEL, 0), _DOWN2_KERNEL, 1)
+    else:
+        out = _taps(img, out_h, out_w, _DOWN_TAPS)
+    if history is not None:
+        lerp = 1.0 - torch.pow(torch.tensor(0.001, device=img.device),
+                               frame_time)
+        out = history + (out - history) * lerp
+    return out
+
+
+def bloom_upsample(img, out_h: int, out_w: int):
+    in_h, in_w = img.shape[:2]
+    if out_h == 2 * in_h and out_w == 2 * in_w:
+        return _upsample2_axis(_upsample2_axis(img, 0), 1)
+    return _taps(img, out_h, out_w, _UP_TAPS)
+
+
+_A, _B, _C, _D, _E, _F, _W = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30, 11.2
+
+
+def _uncharted2(x):
+    return ((x * (_A * x + _C * _B) + _D * _E)
+            / (x * (_A * x + _B) + _D * _F)) - _E / _F
+
+
+def tonemap(hdr, bloom, avg_log_lum=None):
+    """hdr + bilinearly upsampled bloom, exposure exp2(-avg log lum),
+    Uncharted2 filmic curve."""
+    h, w = hdr.shape[:2]
+    if bloom is not None:
+        if bloom.shape[:2] != (h, w):
+            bloom = resize_bilinear(bloom, h, w)
+        hdr = hdr + bloom[..., :3]
+    if avg_log_lum is not None:
+        hdr = hdr * torch.exp2(-avg_log_lum)
+    white_scale = 1.0 / ((_W * (_A * _W + _C * _B) + _D * _E)
+                         / (_W * (_A * _W + _B) + _D * _F) - _E / _F)
+    return _uncharted2(hdr) * white_scale

@@ -1,0 +1,66 @@
+"""Per-pixel texture fetch from packed LOD strips — kernel B3 (replaces
+granite_tpu/ops/tile_sampler.py _sample_kernel).
+
+The reference's tile sampler planned texel rects per screen tile, DMA'd
+them into VMEM and fetched texels with one-hot MXU matmuls: all TPU
+workarounds for its slow per-pixel gather.  On Hopper the job is a
+plain gather: one thread per pixel reads ONE 5C-channel row of the
+(N, HS-1, S, 5C) LOD strip (ops/texture.build_packed_lod_strip_np) at
+floor(lod) and reconstructs approximate trilinear (bilinear quad lerped
+to the baked parent tap), with ops/texture.sample_packed_lod semantics.
+Pixels with bundle < 0 (uncovered) return 0, and the output is
+nan_to_num'd (nan -> 0, +inf -> 1, -inf -> 0) like the reference.
+
+Used for the material fetch (f16 texels, C = 12) and the specular IBL
+environment fetch (f32 texels, C = 4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build as K
+from .texture import num_mip_levels, sample_packed_lod
+
+
+def sample_lod_plain(strips, bundle, u, v, lod, channels: int):
+    """Plain PyTorch version of kernel B3 -> (..., channels) f32."""
+    n = strips.shape[0]
+    live = (bundle >= 0) & (bundle < n)
+    out = sample_packed_lod(strips, torch.where(live, bundle,
+                                                torch.zeros_like(bundle)),
+                            u, v, lod, channels)
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return torch.nan_to_num(out, nan=0.0, posinf=1.0, neginf=0.0)
+
+
+def sample_lod(strips, bundle, u, v, lod, channels: int):
+    """Kernel B3: strips (N, HS-1, S, 5C) f16|f32; bundle (...) int32
+    (-1 = skip); u, v, lod (...) f32 -> (..., channels) f32."""
+    dev = strips.device
+    if dev.type == "cpu":
+        return sample_lod_plain(strips, bundle, u, v, lod, channels)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_lod: unsupported device {dev}")
+    if strips.dtype not in (torch.float16, torch.float32):
+        raise ValueError(f"sample_lod: strips dtype {strips.dtype}")
+    K.check(strips, "strips", strips.dtype, dev, 4)
+    N, rows, S, c5 = strips.shape
+    if c5 != 5 * channels or channels not in (4, 12):
+        raise ValueError(f"sample_lod: {c5} strip lanes for {channels} "
+                         "channels (kernel instantiates C = 4 and 12)")
+    shape = u.shape
+    bundle = bundle.to(torch.int32).contiguous()
+    u = u.to(torch.float32).contiguous()
+    v = v.to(torch.float32).contiguous()
+    lod = lod.to(torch.float32).contiguous()
+    for name, t in (("bundle", bundle), ("u", u), ("v", v), ("lod", lod)):
+        if t.shape != shape or t.device != dev:
+            raise ValueError(f"sample_lod: {name} {tuple(t.shape)} on "
+                             f"{t.device}, expected {tuple(shape)}")
+    out = torch.empty(shape + (channels,), dtype=torch.float32, device=dev)
+    K.launch("B3", "granite_sample_lod", K.ptr(strips),
+             int(strips.dtype == torch.float16), N, rows, S, channels,
+             K.ptr(bundle), K.ptr(u), K.ptr(v), K.ptr(lod), K.ptr(out),
+             u.numel(), num_mip_levels(S, S))
+    return out

@@ -1,0 +1,31 @@
+"""The port never imports jax, directly or transitively."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SRC = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import granite_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(granite_tpu_torch.__path__,
+                                               "granite_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(k for k, v in sys.modules.items()
+                if (k == "jax" or k.startswith("jax.")) and v is not None)
+print("MODULES", len(names))
+print("JAX", loaded)
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SRC], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.startswith(("MODULES", "JAX")))
+    assert int(lines["MODULES"]) >= 20
+    assert lines["JAX"] == "[]"
