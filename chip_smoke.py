@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. Probe: card name and power limit, torch/CUDA versions, nvcc; builds
-   the four Hopper kernels from granite_tpu_torch/csrc (build seconds).
+   the Hopper kernels from granite_tpu_torch/csrc, one nvcc per source
+   in parallel (build seconds).
 2. One phase per kernel at the bench frame's shapes (Sponza-class bench
    scene, 1920x1080, the bench config): the kernel and its plain PyTorch
    version on the same inputs on the card, compared, both timed.
@@ -11,13 +12,22 @@
      B2 G-buffer raster + resolve: coverage and depth exact, planes at
         tests/test_raster_fused.py's tolerances.
      B3 material (f16, C=12) and environment (f32, C=4) fetch: 1e-6.
+     B3T VSM moment fetch, 2048^2 moments of the sun map at the bench
+        view's half-res coordinates (960x540): 1e-6.
      B4 deferred lighting: 3e-4 of the output's magnitude.
-3. Main path: SceneViewerApplication(device="cuda") on the bench scene
-   and config at 1920x1080, 2 warm-up frames then 12 orbiting frames
-   (camera_orbit=0.01), ms/frame from CUDA events; image gate, kernel
-   launch counts (all must be > 0) and the raster overflow counters.
-4. Cross-device check: the deferred_hdr golden config at 128x72 on the
-   card and on the CPU (plain versions), luma PSNR >= 48 dB.
+3. Main paths, each with the launch counts set to 0 just before it and
+   read just after: SceneViewerApplication(device="cuda") on the bench
+   scene at 1920x1080, 2 warm-up frames then 12 orbiting frames
+   (camera_orbit=0.01), ms/frame from CUDA events and the host clock;
+   image gate, launch counts (every kernel of the path > 0) and the
+   raster overflow counters.
+     deferred: the bench config (deferred HDR).
+     forward:  the bench config with the forward renderer, VSM sun
+               shadows and FXAA (B1, B2, B3, B3T, B4).
+4. Cross-device checks at 128x72 on the card and on the CPU (plain
+   versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
+   forward_shadow, deferred_smaa and forward_vsm_fxaa (the latter with
+   materialTileSampler "true", so both devices take the tiled VSM route).
 Any failure raises and exits non-zero without the final result line.
 The last two lines are the kernels JSON and the card, then the result.
 """
@@ -25,7 +35,6 @@ The last two lines are the kernels JSON and the card, then the result.
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 import tempfile
@@ -35,9 +44,18 @@ import types
 BENCH_CONFIG = {"renderer": "deferred", "hdrBloom": True,
                 "shadowMapResolution": 2048, "rasterMaxVisible": 163840,
                 "shadowTermHalfRes": True}
-GOLDEN_CONFIG = {"renderer": "deferred", "hdrBloom": True,
-                 "shadowMapResolution": 64,
-                 "clusteredLightsShadowsResolution": 64}
+FORWARD_CONFIG = {"renderer": "forward", "hdrBloom": True,
+                  "shadowMapResolution": 2048,
+                  "directionalLightShadowsVSM": True, "postAA": "fxaa",
+                  "rasterMaxVisible": 163840}
+# Main paths: name -> (config, kernels it must launch).
+MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
+              "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4"))}
+# Golden configs checked card against CPU; materialTileSampler "true"
+# sends both devices down the tiled VSM route (B3T on the card).
+CROSS_DEVICE = {"deferred_hdr": {}, "forward_shadow": {},
+                "deferred_smaa": {},
+                "forward_vsm_fxaa": {"materialTileSampler": "true"}}
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 12, 0.01
 FRAME_TIME = 1.0 / 60.0
@@ -49,6 +67,8 @@ KERNELS = {
            "granite_tpu/ops/raster_fused.py:110"),
     "B3": ("granite_tpu_torch/csrc/tile_sampler.cu",
            "granite_tpu/ops/tile_sampler.py:420"),
+    "B3T": ("granite_tpu_torch/csrc/tile_sampler.cu",
+            "granite_tpu/ops/tile_sampler.py:420"),
     "B4": ("granite_tpu_torch/csrc/shade_fused.cu",
            "granite_tpu/ops/shade_fused.py:74"),
 }
@@ -74,16 +94,6 @@ def image_gate(img):
     means = [float(m) for m in rgb.mean(axis=(0, 1))]
     return bool(np.isfinite(rgb).all() and all(1.0 < m < 250.0
                                                for m in means)), means
-
-
-def luma_psnr(a, b) -> float:
-    """tests/golden_utils.psnr: luma PSNR in dB of two RGBA8 images."""
-    import numpy as np
-    luma = np.array([0.2126, 0.7152, 0.0722], np.float32)
-    ya = a.astype(np.float32)[..., :3] @ luma
-    yb = b.astype(np.float32)[..., :3] @ luma
-    mse = float(np.mean((ya - yb) ** 2))
-    return 99.0 if mse == 0 else 10.0 * math.log10(255.0 * 255.0 / mse)
 
 
 def timed_ms(fn, reps: int) -> float:
@@ -141,7 +151,10 @@ def kernel_phases(results: dict) -> None:
     from granite_tpu_torch.ops.shade_fused import (
         shade_planes_fused, shade_planes_plain,
     )
-    from granite_tpu_torch.ops.tile_sampler import sample_lod, sample_lod_plain
+    from granite_tpu_torch.ops.shadow import light_uvz, vsm_moments
+    from granite_tpu_torch.ops.tile_sampler import (
+        sample_bilinear, sample_bilinear_plain, sample_lod, sample_lod_plain,
+    )
     from granite_tpu_torch.renderer import scene_renderer as SR
     from granite_tpu_torch.renderer.environment import env_fetch_coords
 
@@ -254,6 +267,24 @@ def kernel_phases(results: dict) -> None:
         pms += p_ms
     results["B3"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
 
+    # --- B3T: VSM moment fetch (the forward path's sun term) -------------
+    moments = vsm_moments(params["static_shadow_depth"])
+    u, v, _z, inside = light_uvz(params["shadow_uv_mat"],
+                                 surf["pos"][::2, ::2])
+    live = surf["covered"][::2, ::2] & inside
+    vsm_args = (moments, u.contiguous(), v.contiguous(), live.contiguous())
+    o_k = sample_bilinear(*vsm_args)
+    o_p = sample_bilinear_plain(*vsm_args)
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    check(err <= 1e-6, f"B3T differs from plain by {err}")
+    ms = timed_ms(lambda: sample_bilinear(*vsm_args), 20)
+    pms = timed_ms(lambda: sample_bilinear_plain(*vsm_args), 3)
+    log(f"B3T VSM moments {tuple(moments.shape)} at {tuple(u.shape)} "
+        f"({int(live.sum())} live): max abs err {err:.3g}; kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms")
+    results["B3T"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
     # --- B4: deferred lighting --------------------------------------------
     kw = app.light_kwargs(params, params["static_shadow_depth"])
     args, kkw = SR.shade_inputs(surf, params, **kw)
@@ -273,15 +304,16 @@ def kernel_phases(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path() -> dict:
-    """The viewer's bench frame through the kernels; returns launches."""
+def main_path(name: str) -> dict:
+    """One bench frame path through the kernels; returns its launches."""
     import numpy as np
     import torch
     from granite_tpu_torch.kernels import build as K
 
+    cfg, required = MAIN_PATHS[name]
     K.reset_launch_counts()
     t0 = time.monotonic()
-    app = make_app(BENCH_CONFIG, True, "cuda")
+    app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
     app.render_frames_chained(FRAME_TIME, 0.0, WARMUP, camera_orbit=ORBIT)
     torch.cuda.synchronize()
@@ -300,19 +332,20 @@ def main_path() -> dict:
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
-    log(f"main path {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame (CUDA events), "
-        f"{host_ms:.3f} ms/frame (host clock) over {FRAMES} orbiting "
-        f"frames; setup + {WARMUP} warm-up frames {setup_s:.1f} s")
+    log(f"main path {name} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame (CUDA "
+        f"events), {host_ms:.3f} ms/frame (host clock) over {FRAMES} "
+        f"orbiting frames; setup + {WARMUP} warm-up frames {setup_s:.1f} s")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
-    log(f"launches {launches}")
+    log(f"launches {name} {launches}")
     # max_bin_entries and the overflow/clamp counters: printed, not
     # gated (the reference clamps and drops the same way; the port counts)
     log(f"raster stats {stats}")
     check(img.shape == (HEIGHT, WIDTH, 4), f"backbuffer shape {img.shape}")
     check(ok, f"image gate failed: means {means}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched by the main path")
+    for k in required:
+        check(launches[k] > 0, f"kernel {k} was not launched by the {name} "
+              "path")
     del app
     torch.cuda.empty_cache()
     return launches
@@ -320,19 +353,24 @@ def main_path() -> dict:
 
 def cross_device() -> None:
     import torch
-    imgs = {}
-    for device in ("cuda", "cpu"):
-        app = make_app(GOLDEN_CONFIG, False, device)
-        app.swapchain_updated(128, 72)
-        out = None
-        for i in range(2):
-            out = app.render_frame(FRAME_TIME, i * FRAME_TIME)
-        imgs[device] = out.cpu().numpy()
-    torch.cuda.synchronize()
-    p = luma_psnr(imgs["cuda"], imgs["cpu"])
-    log(f"cross-device deferred_hdr 128x72: cuda vs cpu luma PSNR "
-        f"{p:.2f} dB")
-    check(p >= PSNR_GATE_DB, f"cross-device PSNR {p:.2f} < {PSNR_GATE_DB}")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from golden_utils import CONFIGS, psnr     # numpy only, no jax
+    for name, extra in CROSS_DEVICE.items():
+        cfg = {**CONFIGS[name], **extra}
+        imgs = {}
+        for device in ("cuda", "cpu"):
+            app = make_app(cfg, False, device)
+            app.swapchain_updated(128, 72)
+            out = None
+            for i in range(2):
+                out = app.render_frame(FRAME_TIME, i * FRAME_TIME)
+            imgs[device] = out.cpu().numpy()
+        torch.cuda.synchronize()
+        p = psnr(imgs["cuda"], imgs["cpu"])
+        log(f"cross-device {name} 128x72: cuda vs cpu luma PSNR {p:.2f} dB")
+        check(p >= PSNR_GATE_DB,
+              f"cross-device {name} PSNR {p:.2f} < {PSNR_GATE_DB}")
 
 
 def main() -> int:
@@ -340,10 +378,12 @@ def main() -> int:
     card = probe()
     results: dict = {}
     kernel_phases(results)
-    launches = main_path()
+    by_path = {name: main_path(name) for name in MAIN_PATHS}
     cross_device()
+    # launches: the sum over the main paths (each counted from 0)
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k], **results[k]}
+                "launches": sum(n[k] for n in by_path.values()),
+                **results[k]}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

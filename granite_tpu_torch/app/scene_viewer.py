@@ -1,12 +1,14 @@
-"""SceneViewerApplication — the deferred HDR viewer on PyTorch/CUDA (port
-of the deferred + HDR subset of granite_tpu/app/scene_viewer.py).
+"""SceneViewerApplication — the scene viewer on PyTorch/CUDA (port of the
+deferred/forward + HDR + LDR-AA subset of granite_tpu/app/scene_viewer.py).
 
-Graph (swapchain_updated): shadow-main -> gbuffer -> lighting ->
-bloom-threshold / luminance / bloom-down0-3 / bloom-up0-1 -> tonemap ->
-sRGB backbuffer.  Kernels: B1 for the sun shadow map and the clustered
-light shadow atlas, B2 + B3 for the G-buffer, B3 + B4 for lighting.
-Config knobs keep the reference's config.json names; a knob value the
-slice does not implement raises NotImplementedError.
+Graph (swapchain_updated): shadow-main -> gbuffer -> lighting (deferred)
+or forward (forward) -> bloom-threshold / luminance / bloom-down0-3 /
+bloom-up0-1 -> tonemap -> sRGB backbuffer, or with postAA fxaa/smaa
+tonemap -> ldr -> fxaa|smaa -> sRGB backbuffer.  Kernels: B1 for the sun
+shadow map and the clustered light shadow atlas, B2 + B3 for the
+surface, B3 + B4 for lighting, B3T for the VSM sun term.  Config knobs
+keep the reference's config.json names; a knob value the port does not
+implement raises NotImplementedError.
 
 Run:
   python -m granite_tpu_torch.app.scene_viewer --bench-scene \
@@ -41,7 +43,11 @@ from ..graph.render_graph import (
 from ..ops import hdr as HDR
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
 from ..ops.light_shadows import assign_slices, pack_atlas
-from ..ops.shadow import directional_shadow_matrix, shadow_uv_transform
+from ..ops.fxaa import fxaa
+from ..ops.shadow import (
+    directional_shadow_matrix, shadow_uv_transform, vsm_moments,
+)
+from ..ops.smaa import smaa
 from ..ops.srgb import encode_rgba8
 from ..renderer.environment import Environment, procedural_sky_equirect
 from ..renderer.render_context import RenderContext
@@ -167,12 +173,11 @@ class ViewerConfig:
         return cfg
 
     def check_slice(self) -> None:
-        """Raise NotImplementedError for knob values outside this port
-        slice (the deferred HDR path with the kernel route)."""
+        """Raise NotImplementedError for knob values outside the port so
+        far (deferred/forward, HDR, FXAA/SMAA, the kernel route)."""
         need = {
-            "renderer": ("deferred",), "msaa": (1,),
+            "renderer": ("deferred", "forward"), "msaa": (1,),
             "directional_light_cascaded_shadows": (False,),
-            "directional_light_shadows_vsm": (False,),
             "clustered_lights_shadows_vsm": (False,),
             "ssao": (False,), "ssr": (False,), "volumetric_fog": (False,),
             "volumetric_fog_regions": (False,),
@@ -180,7 +185,8 @@ class ViewerConfig:
             "texture_streaming": (False,), "env_tile_sampler": (True,),
             "env_specular_half_res": (False,), "mesh_encoding": ("classic",),
             "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
-            "resolution_scale": (1.0,), "post_aa": ("none",),
+            "resolution_scale": (1.0,),
+            "post_aa": ("none", "fxaa", "smaa"),
             "ocean": (False,), "terrain": (False,), "show_ui": (False,),
             "occlusion_culling": (False,), "rescale_scene": (False,),
         }
@@ -318,12 +324,57 @@ class SceneViewerApplication:
         use_shadow = self.config.directional_light_shadows
         if use_shadow:
             s = int(self.config.shadow_map_resolution)
+            channels = 2 if self.config.directional_light_shadows_vsm else 1
             g.add_pass("shadow-main", Queue.GRAPHICS) \
                 .add_external_input("world") \
                 .add_depth_stencil_output(
                     "shadow-depth", AttachmentInfo(SizeClass.ABSOLUTE, s, s,
-                                                   channels=1)) \
+                                                   channels=channels)) \
                 .set_execute(self._shadow_pass)
+        if self.config.renderer == "deferred":
+            self._add_deferred_passes(g, rel, use_shadow)
+        else:
+            fwd = g.add_pass("forward", Queue.GRAPHICS) \
+                .add_external_input("world") \
+                .add_external_input("normal_mats") \
+                .add_color_output("hdr", rel(1, 3)) \
+                .add_depth_stencil_output("depth-main", rel(1, 1))
+            if use_shadow:
+                fwd.add_texture_input("shadow-depth")
+            fwd.set_execute(self._forward_pass)
+        if self.config.hdr_bloom:
+            self._add_hdr_chain(g, rel)
+        aa = self.config.post_aa
+        self._ldr_aa = aa in ("fxaa", "smaa")
+        tm = g.add_pass("tonemap", Queue.GRAPHICS) \
+            .add_texture_input("hdr")
+        if self._ldr_aa:
+            tm.add_color_output("ldr", AttachmentInfo(channels=3))
+        else:
+            tm.add_color_output("backbuffer",
+                                AttachmentInfo(channels=4, dtype=torch.uint8))
+        if self.config.hdr_bloom:
+            tm.add_texture_input("bloom-final")
+            tm.add_texture_input("luminance")
+        tm.set_execute(self._tonemap_pass)
+        if self._ldr_aa:
+            # FXAA / SMAA 1x on the tonemapped LDR target (post/aa.cpp).
+            g.add_pass(aa, Queue.GRAPHICS) \
+                .add_texture_input("ldr") \
+                .add_color_output("backbuffer",
+                                  AttachmentInfo(channels=4,
+                                                 dtype=torch.uint8)) \
+                .set_execute(self._fxaa_pass if aa == "fxaa"
+                             else self._smaa_pass)
+        g.set_backbuffer_source("backbuffer")
+        g.bake()
+        g.log()
+        self._history = g.initial_history(self.device)
+        self._param_cache = None
+        self._orbit_cache = None
+
+    def _add_deferred_passes(self, g, rel, use_shadow: bool) -> None:
+        """G-buffer pass, then the lighting resolve."""
         g.add_pass("gbuffer", Queue.GRAPHICS) \
             .add_external_input("world") \
             .add_external_input("normal_mats") \
@@ -344,22 +395,6 @@ class SceneViewerApplication:
         if use_shadow:
             light.add_texture_input("shadow-depth")
         light.set_execute(self._lighting_pass)
-        if self.config.hdr_bloom:
-            self._add_hdr_chain(g, rel)
-        tm = g.add_pass("tonemap", Queue.GRAPHICS) \
-            .add_texture_input("hdr") \
-            .add_color_output("backbuffer",
-                              AttachmentInfo(channels=4, dtype=torch.uint8))
-        if self.config.hdr_bloom:
-            tm.add_texture_input("bloom-final")
-            tm.add_texture_input("luminance")
-        tm.set_execute(self._tonemap_pass)
-        g.set_backbuffer_source("backbuffer")
-        g.bake()
-        g.log()
-        self._history = g.initial_history(self.device)
-        self._param_cache = None
-        self._orbit_cache = None
 
     def _add_hdr_chain(self, g, rel) -> None:
         """setup_hdr_postprocess: threshold at 1/2 res -> 4 downsamples
@@ -397,7 +432,11 @@ class SceneViewerApplication:
 
     # -- passes -----------------------------------------------------------------
     def _shadow_pass(self, ctx):
-        return {"shadow-depth": ctx.params["static_shadow_depth"]}
+        """The cached static sun map, or under VSM its baked moments."""
+        key = "static_vsm_moments" \
+            if self.config.directional_light_shadows_vsm \
+            else "static_shadow_depth"
+        return {"shadow-depth": ctx.params[key]}
 
     def _transform(self, ctx):
         return transform_vertices(self.packed, ctx.input("world"),
@@ -408,23 +447,57 @@ class SceneViewerApplication:
         mv = self.config.raster_max_visible
         return mv if mv > 0 else None
 
-    def _gbuffer_pass(self, ctx):
-        p = ctx.params
-        clip, wpos, wnrm, wtan = self._transform(ctx)
+    def _raster_surface(self, ctx, xf, stats_key: str):
+        """Raster + resolve (B2) + material fetch (B3) of the opaque
+        queue -> (surf, depth)."""
+        clip, wpos, wnrm, wtan = xf
         surf, depth, stats = fused_raster_surface(
-            self.packed, clip, p["object_mask"], wpos, wnrm, wtan,
+            self.packed, clip, ctx.params["object_mask"], wpos, wnrm, wtan,
             self.width, self.height, lod_bias=self.config.lod_bias,
             max_visible=self._resolved_max_visible(),
             material_textures=self.config.material_textures)
-        self.raster_stats["gbuffer"] = stats
+        self.raster_stats[stats_key] = stats
+        return surf, depth
+
+    def _lit_color(self, ctx, surf, depth, xf=None):
+        """Lighting (B4) of a surf dict, then the transparent queue
+        forward-shaded over it -> hdr.  xf: the vertex transform, when the
+        caller already has it."""
+        kw = self.light_kwargs(
+            ctx.params, ctx.input("shadow-depth")
+            if self.config.directional_light_shadows else None)
+        color = shade_surface_fused(surf, ctx.params, **kw)
+        if self._has_transparent:
+            clip, wpos, wnrm, wtan = xf if xf is not None \
+                else self._transform(ctx)
+            for k in ("background", "width", "height"):
+                kw.pop(k)
+            color = transparent_composite(
+                self.packed, clip, depth, color,
+                ctx.params["transparent_mask"], ctx.params, self.width,
+                self.height, world_pos=wpos, world_normal=wnrm,
+                world_tangent=wtan, **kw)
+        return color
+
+    def _forward_pass(self, ctx):
+        """The forward renderer: surface and lighting in one pass."""
+        xf = self._transform(ctx)
+        surf, depth = self._raster_surface(ctx, xf, "forward")
+        return {"hdr": self._lit_color(ctx, surf, depth, xf),
+                "depth-main": depth}
+
+    def _gbuffer_pass(self, ctx):
+        surf, depth = self._raster_surface(ctx, self._transform(ctx),
+                                           "gbuffer")
         return {"g-base": surf["base_color"], "g-normal": surf["normal"],
                 "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
                                      dim=-1),
                 "g-emissive": surf["emissive"], "g-pos": surf["pos"],
                 "depth-main": depth, "g-covered": surf["covered"]}
 
-    def _shadow_half_res(self) -> bool:
-        v = self.config.shadow_term_half_res
+    def _on_here(self, v) -> bool:
+        """A true/false/"auto" knob as the reference reads it: "auto" is on
+        on the accelerator (here the card), off on the CPU."""
         if isinstance(v, bool):
             return v
         return _flag(v) == "true" or (_flag(v) == "auto"
@@ -436,7 +509,15 @@ class SceneViewerApplication:
         kw = dict(shadow_map=shadow_map,
                   shadow_uv_mat=p["shadow_uv_mat"],
                   width=self.width, height=self.height, background=None,
-                  shadow_half_res=self._shadow_half_res(),
+                  # materialTileSampler picks the VSM route, as in the
+                  # reference: the tiled half-res term through B3T, or
+                  # the classic per-pixel term (B3's material fetch runs
+                  # on every device).
+                  shadow_tiled=(
+                      self.config.directional_light_shadows_vsm
+                      and self._on_here(self.config.material_tile_sampler)),
+                  shadow_half_res=self._on_here(
+                      self.config.shadow_term_half_res),
                   env={"strips": self.environment.strips,
                        "sh": self.environment.sh,
                        "levels": self.environment.num_levels,
@@ -456,21 +537,7 @@ class SceneViewerApplication:
                 "emissive": ctx.input("g-emissive"),
                 "pos": ctx.input("g-pos"),
                 "covered": ctx.input("g-covered")}
-        kw = self.light_kwargs(
-            ctx.params, ctx.input("shadow-depth")
-            if self.config.directional_light_shadows else None)
-        color = shade_surface_fused(surf, ctx.params, **kw)
-        if self._has_transparent:
-            # Transparent queue, forward-shaded over the lit frame.
-            clip, wpos, wnrm, wtan = self._transform(ctx)
-            for k in ("background", "width", "height"):
-                kw.pop(k)
-            color = transparent_composite(
-                self.packed, clip, ctx.input("depth-main"), color,
-                ctx.params["transparent_mask"], ctx.params, self.width,
-                self.height, world_pos=wpos, world_normal=wnrm,
-                world_tangent=wtan, **kw)
-        return {"hdr": color}
+        return {"hdr": self._lit_color(ctx, surf, ctx.input("depth-main"))}
 
     def _make_bloom_threshold(self, dst: str):
         def ex(ctx):
@@ -509,8 +576,17 @@ class SceneViewerApplication:
             bloom = ctx.input("bloom-final")
             if self.config.hdr_bloom_dynamic_exposure:
                 avg_log = ctx.input("luminance")
+        ldr = HDR.tonemap(ctx.input("hdr"), bloom, avg_log)
+        if self._ldr_aa:
+            return {"ldr": ldr.clamp(0.0, 1.0)}
+        return {"backbuffer": encode_rgba8(ldr)}
+
+    def _fxaa_pass(self, ctx):
         return {"backbuffer": encode_rgba8(
-            HDR.tonemap(ctx.input("hdr"), bloom, avg_log))}
+            fxaa(ctx.input("ldr"), self.width, self.height))}
+
+    def _smaa_pass(self, ctx):
+        return {"backbuffer": encode_rgba8(smaa(ctx.input("ldr")))}
 
     # -- lights and shadows -----------------------------------------------------
     def _positional_lights(self):
@@ -660,8 +736,14 @@ class SceneViewerApplication:
                     self.packed, world_t, light_vp, size,
                     self._t(static_mask, torch.bool), with_stats=True)
                 self.raster_stats["shadow"] = stats
-                self._static_shadow_cache = (key, depth)
+                # VSM: blur the moments once with the depth, under the
+                # same key (the static casters are the only casters).
+                moments = vsm_moments(depth) \
+                    if self.config.directional_light_shadows_vsm else None
+                self._static_shadow_cache = (key, depth, moments)
             params["static_shadow_depth"] = self._static_shadow_cache[1]
+            if self.config.directional_light_shadows_vsm:
+                params["static_vsm_moments"] = self._static_shadow_cache[2]
         lights = self._collect_lights() if self._has_lights else None
         if lights is not None:
             params["lights"] = lights

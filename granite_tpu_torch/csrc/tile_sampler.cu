@@ -16,6 +16,22 @@
 // 12 material channels, 80 B of f32 for the environment) against ~10
 // FP32 ops a channel.  Neighbouring pixels read neighbouring texels, so
 // most rows come from L2; the kernel keeps one pass and no staging.
+//
+// Kernel B3T (granite_sample_bilinear, below): the same reference
+// kernel's bilinear_taps mode, the exact f32 clamp-to-edge bilinear fetch
+// of raw (H, W, 2) VSM moments at level 0 (reached through
+// ops/shadow.py:sample_vsm_shadow_tiled).  The reference laid the moments
+// out as a clamp-wrapped mip strip, planned 48-row rects per tile and
+// applied the bilinear weights inside a one-hot matmul; here one thread
+// per pixel reads the 2x2 footprint as four float2 loads.  Semantics of
+// ops/hdr._sample_bilinear_uv: x0 = clamp(floor(u*W - 0.5), 0, W-1)
+// (clamped as a float, so +-inf saturate and NaN gives texel 0),
+// x1 = min(x0+1, W-1), fx = clamp(x - x0, 0, 1) with NaN kept, so a NaN
+// coordinate yields NaN and then 0.  Pixels that are not live return 0;
+// the output is nan_to_num'd.  Bound: memory — 32 B of texels, 8 B of
+// coordinates, 1 B of mask and 8 B of output a pixel against ~12 FP32
+// ops; the 2048^2 moment map (32 MB) stays in the 50 MB L2 across a
+// frame's fetch, so no staging.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -94,6 +110,53 @@ __global__ void sample_lod_kernel(const T* __restrict__ strip, int n_bundles,
   }
 }
 
+// floor(x) clamped to [0, hi] in float (matches ops/hdr.clamped_floor).
+__device__ __forceinline__ float clamped_floor(float x, int hi) {
+  float f = floorf(x);
+  if (isnan(f)) f = 0.0f;
+  return fminf(fmaxf(f, 0.0f), (float)hi);
+}
+
+// clamp to [0, 1] that keeps NaN, like torch.clamp.
+__device__ __forceinline__ float clamp01_keep_nan(float t) {
+  return t < 0.0f ? 0.0f : (t > 1.0f ? 1.0f : t);
+}
+
+__global__ void sample_bilinear_kernel(const float2* __restrict__ img,
+                                       int h, int w,
+                                       const float* __restrict__ u_in,
+                                       const float* __restrict__ v_in,
+                                       const uint8_t* __restrict__ live,
+                                       float2* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (!live[i]) {
+    out[i] = make_float2(0.0f, 0.0f);
+    return;
+  }
+  const float x = u_in[i] * (float)w - 0.5f;
+  const float y = v_in[i] * (float)h - 0.5f;
+  const float x0f = clamped_floor(x, w - 1);
+  const float y0f = clamped_floor(y, h - 1);
+  const int x0 = (int)x0f;
+  const int y0 = (int)y0f;
+  const int x1 = min(x0 + 1, w - 1);
+  const int y1 = min(y0 + 1, h - 1);
+  const float fx = clamp01_keep_nan(x - x0f);
+  const float fy = clamp01_keep_nan(y - y0f);
+  const float2 t00 = img[(size_t)y0 * w + x0];
+  const float2 t10 = img[(size_t)y0 * w + x1];
+  const float2 t01 = img[(size_t)y1 * w + x0];
+  const float2 t11 = img[(size_t)y1 * w + x1];
+  const float gx = 1.0f - fx;
+  const float gy = 1.0f - fy;
+  // The plain version's order: (t00*gx + t10*fx)*gy + (t01*gx + t11*fx)*fy
+  // (built with --fmad=false, so each product rounds on its own).
+  const float r0 = (t00.x * gx + t10.x * fx) * gy + (t01.x * gx + t11.x * fx) * fy;
+  const float r1 = (t00.y * gx + t10.y * fx) * gy + (t01.y * gx + t11.y * fx) * fy;
+  out[i] = make_float2(nan_to_num(r0), nan_to_num(r1));
+}
+
 template <typename T, int C>
 int launch_sample(const void* strip, int n_bundles, int rows, int size,
                   const int* bundle, const float* u, const float* v,
@@ -131,4 +194,20 @@ extern "C" int granite_sample_lod(const void* strip, int is_half,
     return launch_sample<float, 4>(strip, n_bundles, rows, size, bundle, u,
                                    v, lod, out, n, levels, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int granite_sample_bilinear(const float* img, int h, int w,
+                                       int channels, const float* u,
+                                       const float* v, const uint8_t* live,
+                                       float* out, int n,
+                                       cudaStream_t stream) {
+  if (channels != 2 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int threads = 256;
+    granite::sample_bilinear_kernel<<<(n + threads - 1) / threads, threads,
+                                      0, stream>>>(
+        reinterpret_cast<const float2*>(img), h, w, u, v, live,
+        reinterpret_cast<float2*>(out), n);
+  }
+  return (int)cudaGetLastError();
 }

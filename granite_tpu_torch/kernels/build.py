@@ -2,11 +2,12 @@
 
 All kernels live in `granite_tpu_torch/csrc/*.cu`, each with a plain C
 entry point that returns `cudaGetLastError()`.  At first use they are
-compiled by nvcc for Hopper (`sm_90a`) into ONE shared library under
-the repository's gitignored `build/` directory and bound with ctypes
-(no PyTorch headers: the build takes seconds, not minutes).  The
-library name carries a hash of the sources and flags, so an edited
-kernel is rebuilt rather than reused.
+compiled by nvcc for Hopper (`sm_90a`), one nvcc process per source, all
+started together, and linked into ONE shared library under the
+repository's gitignored `build/` directory, bound with ctypes (no
+PyTorch headers: the build takes seconds, not minutes).  The library
+name carries a hash of the sources and flags, so an edited kernel is
+rebuilt rather than reused.
 
 Every wrapper counts its launches in `LAUNCHES` (a plain int per
 kernel, incremented only where the kernel is launched), so a run can
@@ -32,8 +33,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "granite_tpu_torch"
 # separate multiply and add (a*(px-ex) + b*(py-ey) + c); a contracted
 # FMA flips coverage of pixels on shared edges.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-lineinfo", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,8 @@ SIGNATURES = {
     #     out, n_pixels, levels, stream
     "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                            _I, _P),
+    # B3T: img, h, w, channels, u, v, live, out, n_pixels, stream
+    "granite_sample_bilinear": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     # B4: planes, n_planes, ph, pw, lights, n_light_cap, tile_masks,
     #     tm_w, uniforms, k_shadow, has_env, has_lights, has_ao, ambient,
     #     out, stream
@@ -57,7 +59,7 @@ SIGNATURES = {
                             _I, _I, _P, _P),
 }
 
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B3T": 0, "B4": 0}
 
 _library = None
 
@@ -91,15 +93,31 @@ def build() -> Path:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
                            "built (PATH, CUDA_HOME, /usr/local/cuda)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in _sources()]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in jobs]
+    failed = []
+    for cmd, proc in procs:          # wait for every job before raising
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = out.with_name(out.name + ".tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[str(o) for o in objs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
     tmp.replace(out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 

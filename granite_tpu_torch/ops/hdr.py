@@ -20,16 +20,29 @@ LUM_MIN_LOG = -3.0
 LUM_MAX_LOG = 2.0
 
 
+def clamped_floor(x, hi: int):
+    """floor(x) clamped to [0, hi], still float.  Clamping before the int
+    cast saturates +-inf and coordinates past the int32 range to the edge
+    texel, as XLA's float->int conversion does (a plain torch cast maps
+    them all to INT_MIN, i.e. texel 0); NaN goes to texel 0."""
+    return torch.nan_to_num(torch.floor(x), nan=0.0).clamp(0, hi)
+
+
 def _sample_bilinear_uv(img, u, v):
     """Bilinear sample of (H, W, C) at normalized UV, clamp-to-edge."""
-    h, w, C = img.shape
-    packed = quad_pack2d(img)
+    return sample_bilinear_packed(quad_pack2d(img), img.shape[-1], u, v)
+
+
+def sample_bilinear_packed(packed, C: int, u, v):
+    """_sample_bilinear_uv on an image already quad-packed
+    (ops/texture.quad_pack2d), for callers that fetch one image often."""
+    h, w = packed.shape[:2]
     x = u * w - 0.5
     y = v * h - 0.5
-    x0 = torch.floor(x).to(torch.int32).clamp(0, w - 1)
-    y0 = torch.floor(y).to(torch.int32).clamp(0, h - 1)
-    fx = (x - x0.to(x.dtype)).clamp(0.0, 1.0)[..., None]
-    fy = (y - y0.to(y.dtype)).clamp(0.0, 1.0)[..., None]
+    x0 = clamped_floor(x, w - 1)
+    y0 = clamped_floor(y, h - 1)
+    fx = (x - x0).clamp(0.0, 1.0)[..., None]
+    fy = (y - y0).clamp(0.0, 1.0)[..., None]
     quad = packed[y0.long(), x0.long()].reshape(y0.shape + (4, C))
     return ((quad[..., 0, :] * (1 - fx) + quad[..., 1, :] * fx) * (1 - fy)
             + (quad[..., 2, :] * (1 - fx) + quad[..., 3, :] * fx) * fy)

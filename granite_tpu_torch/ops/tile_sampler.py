@@ -13,6 +13,14 @@ nan_to_num'd (nan -> 0, +inf -> 1, -inf -> 0) like the reference.
 
 Used for the material fetch (f16 texels, C = 12) and the specular IBL
 environment fetch (f32 texels, C = 4).
+
+Kernel B3T is the reference kernel's other mode, `bilinear_taps`: an
+exact f32 clamp-to-edge bilinear fetch of raw texels at level 0, which
+the reference uses for the VSM moments (ops/shadow.sample_vsm_shadow_
+tiled).  There the planner laid the moments out as a clamp-wrapped mip
+strip and fetched 48-row rects with weighted one-hot matmuls; here one
+thread per pixel reads the 2x2 footprint straight from the (H, W, C)
+moment map.
 """
 
 from __future__ import annotations
@@ -20,7 +28,12 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build as K
+from .hdr import _sample_bilinear_uv
 from .texture import num_mip_levels, sample_packed_lod
+
+
+def _finite_or_zero(out):
+    return torch.nan_to_num(out, nan=0.0, posinf=1.0, neginf=0.0)
 
 
 def sample_lod_plain(strips, bundle, u, v, lod, channels: int):
@@ -31,7 +44,7 @@ def sample_lod_plain(strips, bundle, u, v, lod, channels: int):
                                                 torch.zeros_like(bundle)),
                             u, v, lod, channels)
     out = torch.where(live[..., None], out, torch.zeros_like(out))
-    return torch.nan_to_num(out, nan=0.0, posinf=1.0, neginf=0.0)
+    return _finite_or_zero(out)
 
 
 def sample_lod(strips, bundle, u, v, lod, channels: int):
@@ -63,4 +76,39 @@ def sample_lod(strips, bundle, u, v, lod, channels: int):
              int(strips.dtype == torch.float16), N, rows, S, channels,
              K.ptr(bundle), K.ptr(u), K.ptr(v), K.ptr(lod), K.ptr(out),
              u.numel(), num_mip_levels(S, S))
+    return out
+
+
+def sample_bilinear_plain(img, u, v, live):
+    """Plain PyTorch version of kernel B3T -> (..., C) f32."""
+    out = _sample_bilinear_uv(img, u, v)
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return _finite_or_zero(out)
+
+
+def sample_bilinear(img, u, v, live):
+    """Kernel B3T: img (H, W, C) f32 (kernel instantiates C = 2); u, v
+    (...) f32; live (...) bool (False = skip, output 0) -> (..., C) f32,
+    clamp-to-edge bilinear at level 0, nan_to_num'd."""
+    dev = img.device
+    if dev.type == "cpu":
+        return sample_bilinear_plain(img, u, v, live)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_bilinear: unsupported device {dev}")
+    K.check(img, "img", torch.float32, dev, 3)
+    H, W, C = img.shape
+    if C != 2:
+        raise ValueError(f"sample_bilinear: {C} channels (kernel "
+                         "instantiates C = 2)")
+    shape = u.shape
+    u = u.to(torch.float32).contiguous()
+    v = v.to(torch.float32).contiguous()
+    live = live.to(torch.bool).contiguous()
+    for name, t in (("u", u), ("v", v), ("live", live)):
+        if t.shape != shape or t.device != dev:
+            raise ValueError(f"sample_bilinear: {name} {tuple(t.shape)} on "
+                             f"{t.device}, expected {tuple(shape)}")
+    out = torch.empty(shape + (C,), dtype=torch.float32, device=dev)
+    K.launch("B3T", "granite_sample_bilinear", K.ptr(img), H, W, C,
+             K.ptr(u), K.ptr(v), K.ptr(live), K.ptr(out), u.numel())
     return out

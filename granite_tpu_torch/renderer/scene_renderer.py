@@ -46,7 +46,9 @@ from ..ops.raster_fused import (
 from ..ops.shade_fused import (
     CLUSTER_TILE, P_FIXED, fused_light_table, shade_planes_fused,
 )
-from ..ops.shadow import sample_directional_shadow
+from ..ops.shadow import (
+    sample_directional_shadow, sample_vsm_shadow, sample_vsm_shadow_tiled,
+)
 from ..ops.texture import build_packed_lod_strip_np, lod_from_derivs
 from ..ops.tile_sampler import sample_lod
 from .environment import analytic_sky, eval_sh9, sample_environment
@@ -513,15 +515,24 @@ def fused_raster_surface(scene: PackedScene, clip, object_mask,
 # Lighting: gather products + kernel B4
 # ---------------------------------------------------------------------------
 
-def compute_shadow_term(pos, shadow_map, shadow_uv_mat,
+def compute_shadow_term(pos, covered, shadow_map, shadow_uv_mat,
+                        shadow_tiled: bool = False,
                         shadow_half_res: bool = False):
-    """Directional PCF term per pixel; half-res + bilinear upsample when
-    asked and the frame is even-sized and >= 64 rows."""
+    """Directional shadow term per pixel.  (S, S, 2) VSM moments: the
+    tiled route (kernel B3T, half-res term) when shadow_tiled, else the
+    per-pixel classic route.  (S, S) depth: 2x2 PCF, at half res + a
+    bilinear upsample when asked and the frame is even-sized and >= 64
+    rows."""
     if shadow_map is None:
         return 1.0
+    if shadow_map.dim() == 3 and shadow_map.shape[-1] == 2:
+        if shadow_tiled:
+            return sample_vsm_shadow_tiled(shadow_map, shadow_uv_mat, pos,
+                                           covered)
+        return sample_vsm_shadow(shadow_map, shadow_uv_mat, pos)
     if shadow_map.dim() != 2:
-        raise NotImplementedError("VSM and cascaded shadow maps are not "
-                                  "part of this slice")
+        raise NotImplementedError("cascaded shadow maps are not part of "
+                                  "the port yet")
     H, W = pos.shape[:2]
     if shadow_half_res and H % 2 == 0 and W % 2 == 0 and H >= 64:
         th = sample_directional_shadow(shadow_map, shadow_uv_mat,
@@ -591,7 +602,8 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
                  lights=None, z_masks=None, tile_masks=None, width: int = 0,
                  height: int = 0, background=None, z_near: float = 0.1,
                  z_far: float = 1000.0, env=None, cluster_shadows=None,
-                 ao=None, shadow_half_res: bool = False, view=None):
+                 ao=None, shadow_tiled: bool = False,
+                 shadow_half_res: bool = False, view=None):
     """Kernel B4's inputs for a surf dict: the gather-bound products
     (shadow term, env products through B3, top-K atlas terms) stacked
     with the G-buffer into padded planes, the light table, tile masks
@@ -603,7 +615,8 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
     z_slices = z_masks.shape[0] if z_masks is not None else 32
     H, W = surf["metallic"].shape
     pos = surf["pos"]
-    shadow_term = compute_shadow_term(pos, shadow_map, shadow_uv_mat,
+    shadow_term = compute_shadow_term(pos, surf["covered"], shadow_map,
+                                      shadow_uv_mat, shadow_tiled,
                                       shadow_half_res)
     shadow_term = torch.broadcast_to(
         torch.as_tensor(shadow_term, dtype=torch.float32, device=dev),

@@ -1,8 +1,8 @@
-"""The port's first slice end to end on the CPU: the deferred_hdr golden
-config rendered by granite_tpu_torch (every kernel through its plain
-version) against the JAX render and the committed golden PNG (48 dB
-luma gate, tests/test_golden_images.py), plus the copied scene builders
-and pack_scene held equal to the JAX package's originals."""
+"""The port's slices end to end on the CPU: golden configs rendered by
+granite_tpu_torch (every kernel through its plain version) against the
+JAX render and the committed golden PNGs (48 dB luma gate,
+tests/test_golden_images.py), plus the copied scene builders and
+pack_scene held equal to the JAX package's originals."""
 
 import json
 import os
@@ -49,11 +49,15 @@ def _render_port(cfg, device="cpu"):
     return out.cpu().numpy()
 
 
-# The golden config plus two sets of the other knob values the slice
+# The golden configs plus two sets of the other knob values the port
 # implements (graph without shadow-main / bloom; shorter bloom chain,
 # fixed exposure, factor-only materials, full-res cluster shadows).
+# forward_vsm_fxaa keeps materialTileSampler at its default, so both
+# packages take the classic per-pixel VSM route on the CPU (the JAX
+# tiled route there is the slow interpret-mode Pallas sampler).
 SLICE_CONFIGS = {
     "deferred_hdr": CONFIGS["deferred_hdr"],
+    "forward_vsm_fxaa": CONFIGS["forward_vsm_fxaa"],
     "no_bloom_no_shadows": {
         "renderer": "deferred", "hdrBloom": False,
         "directionalLightShadows": False, "clusteredLightsShadows": False},
@@ -80,6 +84,36 @@ def test_slice_matches_golden_png():
     assert psnr(got, golden) >= GATE_DB
     rgb = got[..., :3].astype(np.float32)
     assert np.isfinite(rgb).all() and 1.0 < rgb.mean() < 250.0
+
+
+@pytest.mark.parametrize("name", ["forward_shadow", "forward_vsm_fxaa",
+                                  "deferred_smaa"])
+def test_port_render_matches_golden_png(name):
+    """Port-only renders (no JAX compile) of the forward graph, VSM +
+    FXAA and SMAA against their committed goldens."""
+    got = _render_port(CONFIGS[name])
+    golden = load_image(os.path.join(GOLDEN_DIR, f"{name}.png"))
+    assert got.shape == golden.shape
+    assert psnr(got, golden) >= GATE_DB
+
+
+def test_forward_graph_passes():
+    app = SceneViewerApplication(types.SimpleNamespace(
+        config=None, bench_scene=False), device="cpu")
+    app.config.directional_light_shadows_vsm = True
+    app.config.post_aa = "fxaa"
+    app.config.shadow_map_resolution = 64
+    app.config.clustered_lights_shadows = False
+    app.swapchain_updated(*SIZE)
+    order = app.graph._order
+    assert "forward" in order and "gbuffer" not in order
+    assert "lighting" not in order
+    assert order.index("shadow-main") < order.index("forward") \
+        < order.index("tonemap") < order.index("fxaa")
+    params = app.build_frame_params(TIME_STEP)
+    moments = params["static_vsm_moments"]
+    s = int(app.config.shadow_map_resolution)
+    assert moments.shape == (s, s, 2) and moments.dtype == torch.float32
 
 
 def _same(a, b, path="info"):
@@ -161,6 +195,10 @@ def test_unsupported_knob_raises():
         _render_port({**CONFIGS["deferred_hdr"], "postAA": "taa"})
     with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
+    for knob in ({"postAA": "fxaa2phase"}, {"postAA": "smaaT2X"},
+                 {"directionalLightShadowsCascaded": True}):
+        with pytest.raises(NotImplementedError):
+            _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
 
 
 def test_graph_rejects_unwritten_input():
