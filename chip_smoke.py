@@ -14,22 +14,36 @@
      B3 material (f16, C=12) and environment (f32, C=4) fetch: 1e-6.
      B3T VSM moment fetch, 2048^2 moments of the sun map at the bench
         view's half-res coordinates (960x540): 1e-6.
-     B4 deferred lighting: 3e-4 of the output's magnitude.
+     B4 deferred lighting: 3e-4 of the output's magnitude; once without
+        and once with the AO plane (has_ao, from ops/ssao at 1080p).
+   B2 and B4 again at 1440x810, the FSR2 render size (a partial 128-px
+   tile column; B2 with the previous-position planes, as under TAA), at
+   the same gates, compared on the viewport.
 3. Main paths, each with the launch counts set to 0 just before it and
    read just after: SceneViewerApplication(device="cuda") on the bench
-   scene at 1920x1080, 2 warm-up frames then 12 orbiting frames
-   (camera_orbit=0.01), ms/frame from CUDA events and the host clock;
+   scene at 1920x1080, 2 warm-up frames then 12 frames through
+   render_frames_chained, ms/frame from CUDA events and the host clock;
    image gate, launch counts (every kernel of the path > 0) and the
    raster overflow counters.
-     deferred: the bench config (deferred HDR).
-     forward:  the bench config with the forward renderer, VSM sun
-               shadows and FXAA (B1, B2, B3, B3T, B4).
+     deferred:      the bench config (deferred HDR), camera orbiting
+                    (camera_orbit=0.01).
+     forward:       the bench config with the forward renderer, VSM sun
+                    shadows and FXAA (B1, B2, B3, B3T, B4), orbiting.
+     deferred_post: the bench config with TAA, volumetric fog, SSAO
+                    (B4 with AO) and SSR.
+     fsr2:          the bench config with FSR2 at resolutionScale 0.75
+                    (renders 1440x810, outputs 1920x1080).
+   The last two are TAA paths: their chained camera stands still and
+   only the jitter moves, as in the reference's chained TAA.
 4. Cross-device checks at 128x72 on the card and on the CPU (plain
    versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
-   forward_shadow, deferred_smaa and forward_vsm_fxaa (the latter with
-   materialTileSampler "true", so both devices take the tiled VSM route).
+   forward_shadow, deferred_smaa, forward_vsm_fxaa (with
+   materialTileSampler "true", so both devices take the tiled VSM route),
+   deferred_taa_fog, deferred_fsr2 and deferred_ssao_ssr.
 Any failure raises and exits non-zero without the final result line.
-The last two lines are the kernels JSON and the card, then the result.
+The last two lines are the kernels JSON (ms and plain_ms of the 1080p
+bench-shape case, max_abs_err over every case of the kernel, launches
+summed over the main paths) and the card, then the result.
 """
 
 from __future__ import annotations
@@ -48,14 +62,21 @@ FORWARD_CONFIG = {"renderer": "forward", "hdrBloom": True,
                   "shadowMapResolution": 2048,
                   "directionalLightShadowsVSM": True, "postAA": "fxaa",
                   "rasterMaxVisible": 163840}
+POST_CONFIG = {**BENCH_CONFIG, "postAA": "taa", "volumetricFog": True,
+               "ssao": True, "ssr": True}
+FSR2_CONFIG = {**BENCH_CONFIG, "postAA": "taaFSR2", "resolutionScale": 0.75}
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
-              "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4"))}
+              "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
+              "deferred_post": (POST_CONFIG, ("B1", "B2", "B3", "B4")),
+              "fsr2": (FSR2_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU; materialTileSampler "true"
 # sends both devices down the tiled VSM route (B3T on the card).
 CROSS_DEVICE = {"deferred_hdr": {}, "forward_shadow": {},
                 "deferred_smaa": {},
-                "forward_vsm_fxaa": {"materialTileSampler": "true"}}
+                "forward_vsm_fxaa": {"materialTileSampler": "true"},
+                "deferred_taa_fog": {}, "deferred_fsr2": {},
+                "deferred_ssao_ssr": {}}
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 12, 0.01
 FRAME_TIME = 1.0 / 60.0
@@ -142,16 +163,115 @@ def probe():
     return card
 
 
-def kernel_phases(results: dict) -> None:
-    """Each kernel against its plain version at the bench frame's shapes."""
+def b2_case(app, params, width: int, height: int, prev=False):
+    """Kernel B2 against its plain version at (width, height); prev adds
+    the previous-position planes from params' prev_world (TAA).
+    -> (planes on the viewport, covered mask, result dict)."""
     import torch
     from granite_tpu_torch.ops import raster as R
     from granite_tpu_torch.ops import raster_binned as RB
     from granite_tpu_torch.ops import raster_fused as RF
+    from granite_tpu_torch.renderer import scene_renderer as SR
+
+    packed = app.packed
+    ext = params["external"]
+    clip, wpos, wnrm, wtan = SR.transform_vertices(
+        packed, ext["world"], ext["normal_mats"], params["view_proj"])
+    prev_wpos = SR.world_positions(packed, ext["prev_world"]) if prev \
+        else None
+    setup = R.setup_triangles(clip, packed.indices, width, height)
+    setup = setup._replace(
+        valid=setup.valid & params["object_mask"][packed.tri_object.long()])
+    extra = RF.build_resolve_extra(packed, wpos, wnrm, wtan, prev_wpos)
+    payload = torch.cat([RF.fold_adjugate(setup).reshape(-1, 9), extra], 1)
+    span_w, span_h = SR.bin_window(width, height)
+    pk, st, hr, hs, stats = RB.bin_triangles(
+        setup, width, height, span_w=span_w, span_h=span_h, extra=payload,
+        max_visible=int(BENCH_CONFIG["rasterMaxVisible"]))
+    tx, ty = -(-width // RB.TILE_W), -(-height // RB.TILE_H)
+    args = (st, hs, pk, hr, tx, ty, span_w, span_h, prev)
+    # Compared on the viewport: rows and columns past it (the rest of the
+    # last 32x128 tile row and column) are padding the wrappers slice
+    # off, which the kernel walks and the plain version (bbox-clipped to
+    # the viewport) leaves empty.
+    p_k = RF.resolve_tiles(*args)[:, :height, :width]
+    p_p = RF.resolve_tiles_plain(*args)[:, :height, :width]
+    torch.cuda.synchronize()
+    cov = p_p[RF.PLANE_COVERED] > 0.5
+    check(torch.equal(p_k[RF.PLANE_COVERED], p_p[RF.PLANE_COVERED]),
+          f"B2 {width}x{height} coverage differs from plain")
+    check(torch.equal(p_k[RF.PLANE_DEPTH], p_p[RF.PLANE_DEPTH]),
+          f"B2 {width}x{height} depth differs from plain")
+    derivs = list(range(RF.PLANE_DUVDX, RF.PLANE_DUVDY + 2))
+    rest = [p for p in range(RF.NUM_PLANES) if p not in derivs]
+    check(torch.allclose(p_k[rest], p_p[rest], rtol=2e-4, atol=2e-4),
+          f"B2 {width}x{height} attribute planes outside tolerance")
+    check(torch.allclose(p_k[derivs], p_p[derivs], rtol=5e-3, atol=5e-5),
+          f"B2 {width}x{height} derivative planes outside tolerance")
+    err = float((p_k - p_p).abs().max())
+    ms = timed_ms(lambda: RF.resolve_tiles(*args), 10)
+    pms = timed_ms(lambda: RF.resolve_tiles_plain(*args), 1)
+    log(f"B2 G-buffer {width}x{height} ({tx}x{ty} tiles, prev planes "
+        f"{prev}): {int(cov.sum())} covered, max abs err {err:.3g}; kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms; bins "
+        f"{ {k: int(v) for k, v in stats.items()} }")
+    return p_k, cov, dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
+
+def surface(app, planes, cov):
+    """The G-buffer surf dict of B2's planes (material fetch through B3)."""
+    import torch
+    from granite_tpu_torch.ops import raster_fused as RF
+    from granite_tpu_torch.renderer import scene_renderer as SR
+
+    def ch(base, n):
+        return planes[base:base + n].movedim(0, -1)
+
+    return SR.material_shade_tail(
+        app.packed, pos=ch(RF.PLANE_POS, 3), nrm=ch(RF.PLANE_NRM, 3),
+        tan=ch(RF.PLANE_TAN, 4), uv=ch(RF.PLANE_UV, 2),
+        duvdx=ch(RF.PLANE_DUVDX, 2), duvdy=ch(RF.PLANE_DUVDY, 2),
+        base_factor=ch(RF.PLANE_BASE, 4), mr_factor=ch(RF.PLANE_MR, 2),
+        bundle_id=planes[RF.PLANE_BUNDLE].to(torch.int32),
+        emissive_factor=ch(RF.PLANE_EMISSIVE, 3), covered=cov,
+        lod_bias=0.0)
+
+
+def b4_case(app, params, surf, label: str, ao=None) -> dict:
+    """Kernel B4 against its plain version on a surf dict (with the AO
+    plane when given), at the 3e-4 relative gate."""
+    import torch
     from granite_tpu_torch.ops.shade_fused import (
         shade_planes_fused, shade_planes_plain,
     )
+    from granite_tpu_torch.renderer import scene_renderer as SR
+
+    kw = app.light_kwargs(params, params["static_shadow_depth"])
+    args, kkw = SR.shade_inputs(surf, params, ao=ao, **kw)
+    check(kkw["has_ao"] == (ao is not None), "B4 has_ao flag")
+    o_k = shade_planes_fused(*args, **kkw)
+    o_p = shade_planes_plain(*args, **kkw)
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    rel = err / max(1.0, float(o_p.abs().max()))
+    check(rel < 3e-4, f"B4 {label} differs from plain by {rel} (relative)")
+    ms = timed_ms(lambda: shade_planes_fused(*args, **kkw), 20)
+    pms = timed_ms(lambda: shade_planes_plain(*args, **kkw), 3)
+    log(f"B4 lighting {label} {args[5]}x{args[4]} ({args[0].shape[0]} "
+        f"planes, {args[1].shape[0]} lights, has_ao={int(kkw['has_ao'])}): "
+        f"max abs err {err:.3g} (rel {rel:.3g}); kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
+
+def kernel_phases(results: dict) -> None:
+    """Each kernel against its plain version at the bench frame's shapes,
+    then B4 with AO, then B2 and B4 at the FSR2 render size."""
+    import torch
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.ops import raster_fused as RF
     from granite_tpu_torch.ops.shadow import light_uvz, vsm_moments
+    from granite_tpu_torch.ops.ssao import ssao, upsample_ao
     from granite_tpu_torch.ops.tile_sampler import (
         sample_bilinear, sample_bilinear_plain, sample_lod, sample_lod_plain,
     )
@@ -186,48 +306,9 @@ def kernel_phases(results: dict) -> None:
     results["B1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
 
     # --- B2: G-buffer raster + resolve ------------------------------------
-    clip, wpos, wnrm, wtan = SR.transform_vertices(
-        packed, world, params["external"]["normal_mats"],
-        params["view_proj"])
-    setup = R.setup_triangles(clip, packed.indices, WIDTH, HEIGHT)
-    setup = setup._replace(
-        valid=setup.valid & params["object_mask"][packed.tri_object.long()])
-    extra = RF.build_resolve_extra(packed, wpos, wnrm, wtan)
-    payload = torch.cat([RF.fold_adjugate(setup).reshape(-1, 9), extra], 1)
-    span_w, span_h = SR.bin_window(WIDTH, HEIGHT)
-    pk, st, hr, hs, stats = RB.bin_triangles(
-        setup, WIDTH, HEIGHT, span_w=span_w, span_h=span_h, extra=payload,
-        max_visible=int(BENCH_CONFIG["rasterMaxVisible"]))
-    tx, ty = -(-WIDTH // RB.TILE_W), -(-HEIGHT // RB.TILE_H)
-    args = (st, hs, pk, hr, tx, ty, span_w, span_h, False)
-    # Compared on the viewport: rows past it (1080..1087 of the 32-row
-    # tiles) are padding the wrappers slice off, which the kernel walks
-    # and the plain version (bbox-clipped to the viewport) leaves empty.
-    p_k = RF.resolve_tiles(*args)[:, :HEIGHT, :WIDTH]
-    p_p = RF.resolve_tiles_plain(*args)[:, :HEIGHT, :WIDTH]
-    torch.cuda.synchronize()
-    cov = p_p[RF.PLANE_COVERED] > 0.5
-    check(torch.equal(p_k[RF.PLANE_COVERED], p_p[RF.PLANE_COVERED]),
-          "B2 coverage differs from plain")
-    check(torch.equal(p_k[RF.PLANE_DEPTH], p_p[RF.PLANE_DEPTH]),
-          "B2 depth differs from plain")
-    derivs = list(range(RF.PLANE_DUVDX, RF.PLANE_DUVDY + 2))
-    rest = [p for p in range(RF.NUM_PLANES) if p not in derivs]
-    check(torch.allclose(p_k[rest], p_p[rest], rtol=2e-4, atol=2e-4),
-          "B2 attribute planes outside tolerance")
-    check(torch.allclose(p_k[derivs], p_p[derivs], rtol=5e-3, atol=5e-5),
-          "B2 derivative planes outside tolerance")
-    err = float((p_k - p_p).abs().max())
-    ms = timed_ms(lambda: RF.resolve_tiles(*args), 10)
-    pms = timed_ms(lambda: RF.resolve_tiles_plain(*args), 1)
-    log(f"B2 G-buffer {WIDTH}x{HEIGHT}: {int(cov.sum())} covered, max abs "
-        f"err {err:.3g}; kernel {ms:.3f} ms, plain {pms:.3f} ms; bins "
-        f"{ {k: int(v) for k, v in stats.items()} }")
-    results["B2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    planes, cov, results["B2"] = b2_case(app, params, WIDTH, HEIGHT)
 
     # --- B3: material + environment fetch ---------------------------------
-    planes = p_k
-
     def ch(base, n):
         return planes[base:base + n].movedim(0, -1)
 
@@ -238,14 +319,7 @@ def kernel_phases(results: dict) -> None:
     uv = ch(RF.PLANE_UV, 2)
     mat_args = (packed.bundles, bnd, uv[..., 0].contiguous(),
                 uv[..., 1].contiguous(), lod, SR.MATERIAL_CHANNELS)
-    surf = SR.material_shade_tail(
-        packed, pos=ch(RF.PLANE_POS, 3), nrm=ch(RF.PLANE_NRM, 3),
-        tan=ch(RF.PLANE_TAN, 4), uv=uv, duvdx=ch(RF.PLANE_DUVDX, 2),
-        duvdy=ch(RF.PLANE_DUVDY, 2), base_factor=ch(RF.PLANE_BASE, 4),
-        mr_factor=ch(RF.PLANE_MR, 2),
-        bundle_id=planes[RF.PLANE_BUNDLE].to(torch.int32),
-        emissive_factor=ch(RF.PLANE_EMISSIVE, 3),
-        covered=cov, lod_bias=0.0)
+    surf = surface(app, planes, cov)
     env = app.environment
     refl, elod = SR.reflection(surf, params["camera_pos"], env.num_levels)
     eb, eu, ev = env_fetch_coords(env.strips, refl, surf["covered"])
@@ -285,21 +359,30 @@ def kernel_phases(results: dict) -> None:
         f"{ms:.3f} ms, plain {pms:.3f} ms")
     results["B3T"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
 
-    # --- B4: deferred lighting --------------------------------------------
-    kw = app.light_kwargs(params, params["static_shadow_depth"])
-    args, kkw = SR.shade_inputs(surf, params, **kw)
-    o_k = shade_planes_fused(*args, **kkw)
-    o_p = shade_planes_plain(*args, **kkw)
-    torch.cuda.synchronize()
-    err = float((o_k - o_p).abs().max())
-    rel = err / max(1.0, float(o_p.abs().max()))
-    check(rel < 3e-4, f"B4 differs from plain by {rel} (relative)")
-    ms = timed_ms(lambda: shade_planes_fused(*args, **kkw), 20)
-    pms = timed_ms(lambda: shade_planes_plain(*args, **kkw), 3)
-    log(f"B4 lighting {WIDTH}x{HEIGHT} ({args[0].shape[0]} planes, "
-        f"{args[1].shape[0]} lights): max abs err {err:.3g} (rel "
-        f"{rel:.3g}); kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    results["B4"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # --- B4: deferred lighting, then with the SSAO plane -----------------
+    results["B4"] = b4_case(app, params, surf, "no AO")
+    proj = app.camera.get_projection()
+    ao = upsample_ao(ssao(planes[RF.PLANE_DEPTH],
+                          z_near=max(app.camera.znear, 1e-3),
+                          proj_scale=0.25 * HEIGHT * abs(float(proj[1, 1]))),
+                     HEIGHT, WIDTH)
+    log(f"SSAO plane {tuple(ao.shape)}: min {float(ao.min()):.3f} mean "
+        f"{float(ao.mean()):.3f}")
+    ao_case = b4_case(app, params, surf, "AO", ao=ao)
+    del app, params, planes, cov, surf, ao
+    torch.cuda.empty_cache()
+
+    # --- B2 and B4 at the FSR2 render size --------------------------------
+    app = make_app(FSR2_CONFIG, True, "cuda")
+    app.swapchain_updated(WIDTH, HEIGHT)
+    rw, rh = app._rw, app._rh
+    params = app.build_frame_params(FRAME_TIME)
+    planes, cov, b2_fsr2 = b2_case(app, params, rw, rh, prev=True)
+    b4_fsr2 = b4_case(app, params, surface(app, planes, cov),
+                      "FSR2 render size")
+    for k, extra in (("B2", (b2_fsr2,)), ("B4", (ao_case, b4_fsr2))):
+        results[k]["max_abs_err"] = max(
+            [results[k]["max_abs_err"]] + [c["max_abs_err"] for c in extra])
     del app
     torch.cuda.empty_cache()
 
@@ -332,9 +415,13 @@ def main_path(name: str) -> dict:
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
-    log(f"main path {name} {WIDTH}x{HEIGHT}: {ms:.3f} ms/frame (CUDA "
-        f"events), {host_ms:.3f} ms/frame (host clock) over {FRAMES} "
-        f"orbiting frames; setup + {WARMUP} warm-up frames {setup_s:.1f} s")
+    # Under TAA render_frames_chained ignores camera_orbit, as the
+    # reference's chained TAA does: a still camera, only the jitter moves.
+    camera = "still, jittered" if app._jitter is not None else "orbiting"
+    log(f"main path {name} {WIDTH}x{HEIGHT} (renders {app._rw}x{app._rh}):"
+        f" {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
+        f"clock) over {FRAMES} frames, camera {camera}; setup + {WARMUP} "
+        f"warm-up frames {setup_s:.1f} s")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
     log(f"launches {name} {launches}")

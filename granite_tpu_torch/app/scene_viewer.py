@@ -1,14 +1,20 @@
 """SceneViewerApplication — the scene viewer on PyTorch/CUDA (port of the
-deferred/forward + HDR + LDR-AA subset of granite_tpu/app/scene_viewer.py).
+deferred/forward + HDR + post-processing subset of
+granite_tpu/app/scene_viewer.py).
 
-Graph (swapchain_updated): shadow-main -> gbuffer -> lighting (deferred)
-or forward (forward) -> bloom-threshold / luminance / bloom-down0-3 /
-bloom-up0-1 -> tonemap -> sRGB backbuffer, or with postAA fxaa/smaa
-tonemap -> ldr -> fxaa|smaa -> sRGB backbuffer.  Kernels: B1 for the sun
-shadow map and the clustered light shadow atlas, B2 + B3 for the
-surface, B3 + B4 for lighting, B3T for the VSM sun term.  Config knobs
-keep the reference's config.json names; a knob value the port does not
-implement raises NotImplementedError.
+Graph (swapchain_updated): shadow-main [-> fog-volume] -> gbuffer
+[-> ssao] -> lighting [-> ssr] (deferred) or forward (forward)
+[-> taa-resolve | fsr2-upscale] -> bloom-threshold / luminance /
+bloom-down0-3 / bloom-up0-1 -> tonemap -> sRGB backbuffer, or with an
+LDR AA tonemap -> ldr -> fxaa|smaa -> sRGB backbuffer.  The frame
+renders at resolutionScale x the display size; FSR2 upscales to display
+size before the HDR chain, otherwise the tonemap resizes and sharpens.
+Temporal AA jitters the camera per frame (TemporalJitter) and the
+surface pass emits motion vectors.  Kernels: B1 for the sun shadow map
+and the clustered light shadow atlas, B2 + B3 for the surface, B3 + B4
+for lighting (B4 takes the SSAO plane), B3T for the VSM sun term.  Config
+knobs keep the reference's config.json names; a knob value the port does
+not implement raises NotImplementedError.
 
 Run:
   python -m granite_tpu_torch.app.scene_viewer --bench-scene \
@@ -41,19 +47,28 @@ from ..graph.render_graph import (
     AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
 )
 from ..ops import hdr as HDR
+from ..ops import taa as TAA
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
-from ..ops.light_shadows import assign_slices, pack_atlas
+from ..ops.fsr2 import fsr2_jitter_phases, fsr2_upscale
 from ..ops.fxaa import fxaa
+from ..ops.light_shadows import assign_slices, pack_atlas
 from ..ops.shadow import (
     directional_shadow_matrix, shadow_uv_transform, vsm_moments,
 )
 from ..ops.smaa import smaa
 from ..ops.srgb import encode_rgba8
+from ..ops.ssao import ssao, upsample_ao
+from ..ops.ssr import ssr
+from ..ops.volumetric_fog import (
+    DEFAULT_D, DEFAULT_H, DEFAULT_W, Z_RANGE, apply_fog,
+    fog_accumulate, fog_light_density,
+)
 from ..renderer.environment import Environment, procedural_sky_equirect
 from ..renderer.render_context import RenderContext
 from ..renderer.scene_renderer import (
-    PackedScene, fused_raster_surface, pack_scene, render_shadow_map,
-    shade_surface_fused, transform_vertices, transparent_composite,
+    PackedScene, fused_raster_surface, motion_vectors, pack_scene,
+    render_shadow_map, shade_surface_fused, transform_vertices,
+    transparent_composite, world_positions,
 )
 from .headless import headless_main
 
@@ -102,6 +117,14 @@ _BY_DESIGN = ("mergeSubpasses", "useTransientColor",
               "forceNoSubgroups", "forceNoSubgroupShuffle",
               "forceNoSubgroupSizeControl", "instanceDeferredLights",
               "timestamp")
+
+# postAA values that jitter the camera, and their phase tables (taaFSR2's
+# Halton sequence depends on the render and display widths).
+_JITTER_TABLES = {"taa": TAA.JITTER_TAA_8PHASE,
+                  "taa-extreme": TAA.JITTER_TAA_16PHASE,
+                  "smaaT2X": TAA.JITTER_SMAA_T2X,
+                  "fxaa2phase": TAA.JITTER_FXAA_2PHASE}
+_POST_AA = ("none", "fxaa", "smaa", "taaFSR2") + tuple(_JITTER_TABLES)
 
 
 def _flag(v) -> str:
@@ -174,19 +197,18 @@ class ViewerConfig:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
-        far (deferred/forward, HDR, FXAA/SMAA, the kernel route)."""
+        far (deferred/forward, HDR, every postAA, fog, SSAO/SSR, render
+        scale, the kernel route)."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1,),
             "directional_light_cascaded_shadows": (False,),
             "clustered_lights_shadows_vsm": (False,),
-            "ssao": (False,), "ssr": (False,), "volumetric_fog": (False,),
             "volumetric_fog_regions": (False,),
             "volumetric_decals": (False,), "volumetric_diffuse": (False,),
             "texture_streaming": (False,), "env_tile_sampler": (True,),
             "env_specular_half_res": (False,), "mesh_encoding": ("classic",),
             "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
-            "resolution_scale": (1.0,),
-            "post_aa": ("none", "fxaa", "smaa"),
+            "post_aa": _POST_AA,
             "ocean": (False,), "terrain": (False,), "show_ui": (False,),
             "occlusion_culling": (False,), "rescale_scene": (False,),
         }
@@ -195,6 +217,9 @@ class ViewerConfig:
                 raise NotImplementedError(
                     f"config {name}={getattr(self, name)!r} is not part of "
                     f"the port yet (supported: {allowed})")
+        if not float(self.resolution_scale) > 0.0:
+            raise ValueError(f"config resolution_scale="
+                             f"{self.resolution_scale!r} must be > 0")
         # The port always takes the kernel route (B3 samplers, B4 shade).
         for name in ("material_tile_sampler", "fused_shade"):
             if _flag(getattr(self, name)) not in ("auto", "true"):
@@ -246,6 +271,8 @@ class SceneViewerApplication:
         self.graph = RenderGraph()
         self._history = None
         self.width = self.height = 0
+        self._jitter = None
+        self._mv_prev = None     # last frame's node world matrices
         self._sun_dir = np.array([0.35, 0.9, 0.25], np.float32)
         self._sun_dir /= np.linalg.norm(self._sun_dir)
         self._sun_color = np.array([3.0, 2.8, 2.5], np.float32)
@@ -313,13 +340,33 @@ class SceneViewerApplication:
         zf = self.camera.zfar if self.camera.zfar > 0 else 1000.0
         self._cluster_range = (zn, zf)
         self._build_light_shadow_atlas()
+        # The frame renders at resolutionScale x the display size.
+        rs = float(self.config.resolution_scale)
+        self._rw = max(int(width * rs), 1)
+        self._rh = max(int(height * rs), 1)
         g = self.graph
         g.reset()
         g.set_backbuffer_dimensions(width, height)
 
-        def rel(scale, channels, dtype=torch.float32):
+        def display(scale, channels, dtype=torch.float32):
             return AttachmentInfo(SizeClass.SWAPCHAIN_RELATIVE, scale, scale,
                                   channels=channels, dtype=dtype)
+
+        def rel(scale, channels, dtype=torch.float32):
+            return display(rs * scale, channels, dtype)
+
+        # Temporal jitter for the TAA family (post/temporal.cpp); taaFSR2
+        # upscales, smaaT2X and fxaa2phase add their LDR pass after TAA.
+        aa = self.config.post_aa
+        self._use_fsr2 = aa == "taaFSR2"
+        self._use_taa = aa in _JITTER_TABLES or self._use_fsr2
+        self._use_fxaa = aa in ("fxaa", "fxaa2phase")
+        self._use_smaa = aa in ("smaa", "smaaT2X")
+        self._jitter = None
+        if self._use_taa:
+            phases = fsr2_jitter_phases(self._rw, width) if self._use_fsr2 \
+                else _JITTER_TABLES[aa]
+            self._jitter = TAA.TemporalJitter(phases, self._rw, self._rh)
 
         use_shadow = self.config.directional_light_shadows
         if use_shadow:
@@ -331,6 +378,16 @@ class SceneViewerApplication:
                     "shadow-depth", AttachmentInfo(SizeClass.ABSOLUTE, s, s,
                                                    channels=channels)) \
                 .set_execute(self._shadow_pass)
+        if self.config.volumetric_fog:
+            # Froxel fog volume: light density + accumulation in one pass;
+            # the lit frame composites it.  The sun term is shadowed only
+            # by a plain (non-VSM) depth map, as in the reference.
+            fog = g.add_pass("fog-volume", Queue.ASYNC_COMPUTE) \
+                .add_storage_output("fog-volume", BufferInfo(
+                    (DEFAULT_D, DEFAULT_H, DEFAULT_W, 4), torch.float32))
+            if use_shadow and not self.config.directional_light_shadows_vsm:
+                fog.add_texture_input("shadow-depth")
+            fog.set_execute(self._fog_volume_pass)
         if self.config.renderer == "deferred":
             self._add_deferred_passes(g, rel, use_shadow)
         else:
@@ -339,15 +396,48 @@ class SceneViewerApplication:
                 .add_external_input("normal_mats") \
                 .add_color_output("hdr", rel(1, 3)) \
                 .add_depth_stencil_output("depth-main", rel(1, 1))
+            self._add_motion_vectors(fwd, rel)
+            if self.config.volumetric_fog:
+                fwd.add_texture_input("fog-volume")
             if use_shadow:
                 fwd.add_texture_input("shadow-depth")
             fwd.set_execute(self._forward_pass)
+
+        hdr_name = "hdr-ssr" if self.config.renderer == "deferred" \
+            and self.config.ssr else "hdr"
+        self._lit_name = hdr_name
+        post_rel = rel
+        if self._use_fsr2:
+            # Temporal upscale to display size; the HDR chain and the
+            # tonemap then run at display size.
+            post_rel = display
+            g.add_pass("fsr2-upscale", Queue.GRAPHICS) \
+                .add_texture_input(hdr_name) \
+                .add_texture_input("depth-main") \
+                .add_texture_input("mv") \
+                .add_history_input("fsr2-history") \
+                .add_color_output("hdr-resolved", display(1, 3)) \
+                .add_color_output("fsr2-history", display(1, 4)) \
+                .set_execute(self._fsr2_pass)
+            hdr_name = "hdr-resolved"
+        elif self._use_taa:
+            # TAA resolve before the HDR chain, history in TAA space.
+            g.add_pass("taa-resolve", Queue.GRAPHICS) \
+                .add_texture_input(hdr_name) \
+                .add_texture_input("depth-main") \
+                .add_texture_input("mv") \
+                .add_history_input("taa-history") \
+                .add_color_output("hdr-resolved", rel(1, 3)) \
+                .add_color_output("taa-history", rel(1, 3)) \
+                .set_execute(self._taa_pass)
+            hdr_name = "hdr-resolved"
+        self._hdr_name = hdr_name
+
         if self.config.hdr_bloom:
-            self._add_hdr_chain(g, rel)
-        aa = self.config.post_aa
-        self._ldr_aa = aa in ("fxaa", "smaa")
+            self._add_hdr_chain(g, post_rel)
+        self._ldr_aa = self._use_fxaa or self._use_smaa
         tm = g.add_pass("tonemap", Queue.GRAPHICS) \
-            .add_texture_input("hdr")
+            .add_texture_input(hdr_name)
         if self._ldr_aa:
             tm.add_color_output("ldr", AttachmentInfo(channels=3))
         else:
@@ -359,12 +449,13 @@ class SceneViewerApplication:
         tm.set_execute(self._tonemap_pass)
         if self._ldr_aa:
             # FXAA / SMAA 1x on the tonemapped LDR target (post/aa.cpp).
-            g.add_pass(aa, Queue.GRAPHICS) \
+            name = "fxaa" if self._use_fxaa else "smaa"
+            g.add_pass(name, Queue.GRAPHICS) \
                 .add_texture_input("ldr") \
                 .add_color_output("backbuffer",
                                   AttachmentInfo(channels=4,
                                                  dtype=torch.uint8)) \
-                .set_execute(self._fxaa_pass if aa == "fxaa"
+                .set_execute(self._fxaa_pass if self._use_fxaa
                              else self._smaa_pass)
         g.set_backbuffer_source("backbuffer")
         g.bake()
@@ -373,9 +464,16 @@ class SceneViewerApplication:
         self._param_cache = None
         self._orbit_cache = None
 
+    def _add_motion_vectors(self, p, rel) -> None:
+        """Under TAA the surface pass (gbuffer or forward) reads last
+        frame's node transforms and writes motion vectors."""
+        if self._use_taa:
+            p.add_external_input("prev_world")
+            p.add_color_output("mv", rel(1, 2))
+
     def _add_deferred_passes(self, g, rel, use_shadow: bool) -> None:
-        """G-buffer pass, then the lighting resolve."""
-        g.add_pass("gbuffer", Queue.GRAPHICS) \
+        """G-buffer pass, [SSAO at half res,] the lighting resolve, [SSR]."""
+        gb = g.add_pass("gbuffer", Queue.GRAPHICS) \
             .add_external_input("world") \
             .add_external_input("normal_mats") \
             .add_color_output("g-base", rel(1, 3)) \
@@ -384,17 +482,37 @@ class SceneViewerApplication:
             .add_color_output("g-emissive", rel(1, 3)) \
             .add_color_output("g-pos", rel(1, 3)) \
             .add_depth_stencil_output("depth-main", rel(1, 1)) \
-            .add_color_output("g-covered", rel(1, 1, torch.bool)) \
-            .set_execute(self._gbuffer_pass)
+            .add_color_output("g-covered", rel(1, 1, torch.bool))
+        self._add_motion_vectors(gb, rel)
+        gb.set_execute(self._gbuffer_pass)
+        if self.config.ssao:
+            g.add_pass("ssao", Queue.COMPUTE) \
+                .add_texture_input("depth-main") \
+                .add_color_output("ssao-output", rel(0.5, 1)) \
+                .set_execute(self._ssao_pass)
         light = g.add_pass("lighting", Queue.GRAPHICS)
         for name in ("g-base", "g-normal", "g-pbr", "g-emissive", "g-pos",
                      "g-covered", "depth-main"):
             light.add_attachment_input(name)
         light.add_external_input("world").add_external_input("normal_mats") \
             .add_color_output("hdr", rel(1, 3))
+        if self.config.ssao:
+            light.add_texture_input("ssao-output")
+        if self.config.volumetric_fog:
+            light.add_texture_input("fog-volume")
         if use_shadow:
             light.add_texture_input("shadow-depth")
         light.set_execute(self._lighting_pass)
+        if self.config.ssr:
+            # Screen-space reflections over the lit frame (deferred only).
+            g.add_pass("ssr", Queue.GRAPHICS) \
+                .add_texture_input("hdr") \
+                .add_texture_input("depth-main") \
+                .add_texture_input("g-normal") \
+                .add_texture_input("g-base") \
+                .add_texture_input("g-pbr") \
+                .add_color_output("hdr-ssr", rel(1, 3)) \
+                .set_execute(self._ssr_pass)
 
     def _add_hdr_chain(self, g, rel) -> None:
         """setup_hdr_postprocess: threshold at 1/2 res -> 4 downsamples
@@ -403,7 +521,7 @@ class SceneViewerApplication:
         depth = max(0, min(int(self.config.hdr_bloom_depth), 6))
         thresh = "bloom-final" if depth == 0 else "bloom-thresh"
         g.add_pass("bloom-threshold", Queue.GRAPHICS) \
-            .add_texture_input("hdr") \
+            .add_texture_input(self._hdr_name) \
             .add_history_input("luminance") \
             .add_color_output(thresh, rel(0.5, 4)) \
             .set_execute(self._make_bloom_threshold(thresh))
@@ -451,22 +569,27 @@ class SceneViewerApplication:
         """Raster + resolve (B2) + material fetch (B3) of the opaque
         queue -> (surf, depth)."""
         clip, wpos, wnrm, wtan = xf
+        # Under TAA the resolve also carries each surface's last-frame
+        # world position (B2's PLANE_PREV) for the motion vectors.
+        prev_wpos = world_positions(self.packed, ctx.input("prev_world")) \
+            if self._use_taa else None
         surf, depth, stats = fused_raster_surface(
             self.packed, clip, ctx.params["object_mask"], wpos, wnrm, wtan,
-            self.width, self.height, lod_bias=self.config.lod_bias,
+            self._rw, self._rh, lod_bias=self.config.lod_bias,
+            prev_world_pos=prev_wpos,
             max_visible=self._resolved_max_visible(),
             material_textures=self.config.material_textures)
         self.raster_stats[stats_key] = stats
         return surf, depth
 
-    def _lit_color(self, ctx, surf, depth, xf=None):
-        """Lighting (B4) of a surf dict, then the transparent queue
-        forward-shaded over it -> hdr.  xf: the vertex transform, when the
-        caller already has it."""
+    def _lit_color(self, ctx, surf, depth, xf=None, ao=None):
+        """Lighting (B4, with the AO plane when given) of a surf dict, the
+        transparent queue forward-shaded over it, then fog -> hdr.
+        xf: the vertex transform, when the caller already has it."""
         kw = self.light_kwargs(
             ctx.params, ctx.input("shadow-depth")
             if self.config.directional_light_shadows else None)
-        color = shade_surface_fused(surf, ctx.params, **kw)
+        color = shade_surface_fused(surf, ctx.params, ao=ao, **kw)
         if self._has_transparent:
             clip, wpos, wnrm, wtan = xf if xf is not None \
                 else self._transform(ctx)
@@ -474,26 +597,45 @@ class SceneViewerApplication:
                 kw.pop(k)
             color = transparent_composite(
                 self.packed, clip, depth, color,
-                ctx.params["transparent_mask"], ctx.params, self.width,
-                self.height, world_pos=wpos, world_normal=wnrm,
+                ctx.params["transparent_mask"], ctx.params, self._rw,
+                self._rh, world_pos=wpos, world_normal=wnrm,
                 world_tangent=wtan, **kw)
+        if self.config.volumetric_fog:
+            # Reverse-Z, infinite far: view depth = znear / ndc z; the
+            # background takes the whole fog range.
+            zn = max(self.camera.znear, 1e-3)
+            world_z = torch.where(depth > 1e-8, zn / depth.clamp_min(1e-8),
+                                  torch.full_like(depth, Z_RANGE))
+            color = apply_fog(color, world_z, ctx.input("fog-volume"))
         return color
+
+    def _motion_vectors(self, ctx, surf, depth):
+        p = ctx.params
+        return motion_vectors(surf["prev_pos"], surf["covered"], depth,
+                              p["prev_vp_uv"], p["taa_reproj"], self._rw,
+                              self._rh)
 
     def _forward_pass(self, ctx):
         """The forward renderer: surface and lighting in one pass."""
         xf = self._transform(ctx)
         surf, depth = self._raster_surface(ctx, xf, "forward")
-        return {"hdr": self._lit_color(ctx, surf, depth, xf),
-                "depth-main": depth}
+        out = {"hdr": self._lit_color(ctx, surf, depth, xf),
+               "depth-main": depth}
+        if self._use_taa:
+            out["mv"] = self._motion_vectors(ctx, surf, depth)
+        return out
 
     def _gbuffer_pass(self, ctx):
         surf, depth = self._raster_surface(ctx, self._transform(ctx),
                                            "gbuffer")
-        return {"g-base": surf["base_color"], "g-normal": surf["normal"],
-                "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
-                                     dim=-1),
-                "g-emissive": surf["emissive"], "g-pos": surf["pos"],
-                "depth-main": depth, "g-covered": surf["covered"]}
+        out = {"g-base": surf["base_color"], "g-normal": surf["normal"],
+               "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
+                                    dim=-1),
+               "g-emissive": surf["emissive"], "g-pos": surf["pos"],
+               "depth-main": depth, "g-covered": surf["covered"]}
+        if self._use_taa:
+            out["mv"] = self._motion_vectors(ctx, surf, depth)
+        return out
 
     def _on_here(self, v) -> bool:
         """A true/false/"auto" knob as the reference reads it: "auto" is on
@@ -508,7 +650,7 @@ class SceneViewerApplication:
         p = params
         kw = dict(shadow_map=shadow_map,
                   shadow_uv_mat=p["shadow_uv_mat"],
-                  width=self.width, height=self.height, background=None,
+                  width=self._rw, height=self._rh, background=None,
                   # materialTileSampler picks the VSM route, as in the
                   # reference: the tiled half-res term through B3T, or
                   # the classic per-pixel term (B3's material fetch runs
@@ -537,14 +679,59 @@ class SceneViewerApplication:
                 "emissive": ctx.input("g-emissive"),
                 "pos": ctx.input("g-pos"),
                 "covered": ctx.input("g-covered")}
-        return {"hdr": self._lit_color(ctx, surf, ctx.input("depth-main"))}
+        ao = upsample_ao(ctx.input("ssao-output"), self._rh, self._rw) \
+            if self.config.ssao else None
+        return {"hdr": self._lit_color(ctx, surf, ctx.input("depth-main"),
+                                       ao=ao)}
+
+    def _fog_volume_pass(self, ctx):
+        p = ctx.params
+        shadow = ctx.input("shadow-depth") \
+            if self.config.directional_light_shadows \
+            and not self.config.directional_light_shadows_vsm else None
+        density = fog_light_density(
+            p["inv_view_proj"], self.camera.get_projection(),
+            p["camera_pos"], p["sun_dir"], p["sun_color"],
+            shadow_map=shadow, shadow_uv_mat=p["shadow_uv_mat"],
+            lights=p.get("lights"))
+        return {"fog-volume": fog_accumulate(density)}
+
+    def _ssao_pass(self, ctx):
+        proj = self.camera.get_projection()
+        # half-res pixels per world unit at view depth 1
+        proj_scale = 0.25 * self._rh * abs(float(proj[1, 1]))
+        return {"ssao-output": ssao(ctx.input("depth-main"),
+                                    z_near=max(self.camera.znear, 1e-3),
+                                    proj_scale=proj_scale)}
+
+    def _ssr_pass(self, ctx):
+        pbr = ctx.input("g-pbr")
+        return {"hdr-ssr": ssr(
+            ctx.input("hdr"), ctx.input("depth-main"), ctx.input("g-normal"),
+            ctx.input("g-base"), pbr[..., 0], pbr[..., 1],
+            ctx.params["view"], self.camera.get_projection(), self._rw,
+            self._rh)}
+
+    def _taa_pass(self, ctx):
+        out, hist = TAA.taa_resolve(
+            ctx.input(self._lit_name), ctx.history("taa-history"),
+            ctx.input("depth-main"), ctx.params["taa_reproj"], self._rw,
+            self._rh, mv=ctx.input("mv"))
+        return {"hdr-resolved": out, "taa-history": hist}
+
+    def _fsr2_pass(self, ctx):
+        out, hist = fsr2_upscale(
+            ctx.input(self._lit_name), ctx.input("depth-main"),
+            ctx.input("mv"), ctx.history("fsr2-history"),
+            ctx.params["fsr2_jitter"], self.height, self.width)
+        return {"hdr-resolved": out, "fsr2-history": hist}
 
     def _make_bloom_threshold(self, dst: str):
         def ex(ctx):
             h, w = ctx.size(dst)
             avg_lin = torch.exp2(ctx.history("luminance"))
             return {dst: HDR.bloom_threshold(
-                ctx.input("hdr"), avg_lin, h, w,
+                ctx.input(self._hdr_name), avg_lin, h, w,
                 dynamic_exposure=self.config.hdr_bloom_dynamic_exposure)}
         return ex
 
@@ -576,7 +763,12 @@ class SceneViewerApplication:
             bloom = ctx.input("bloom-final")
             if self.config.hdr_bloom_dynamic_exposure:
                 avg_log = ctx.input("luminance")
-        ldr = HDR.tonemap(ctx.input("hdr"), bloom, avg_log)
+        ldr = HDR.tonemap(ctx.input(self._hdr_name), bloom, avg_log)
+        if ldr.shape[:2] != (self.height, self.width):
+            # Render size to display size, then the post-upscale sharpen.
+            ldr = HDR.resize_bilinear(ldr, self.height, self.width)
+            if self.config.resolution_scale_sharpen:
+                ldr = HDR.sharpen(ldr)
         if self._ldr_aa:
             return {"ldr": ldr.clamp(0.0, 1.0)}
         return {"backbuffer": encode_rgba8(ldr)}
@@ -685,7 +877,7 @@ class SceneViewerApplication:
             out["z_masks"] = bin_lights_z(lights, out["view"],
                                           self.CLUSTER_Z_SLICES, zn, zf)
             out["tile_masks"] = bin_lights_tiles(
-                lights, out["view_proj"], self.width, self.height,
+                lights, out["view_proj"], self._rw, self._rh,
                 self.CLUSTER_TILE)
         return out
 
@@ -695,10 +887,17 @@ class SceneViewerApplication:
 
     def build_frame_params(self, frame_time: float) -> dict:
         """Host-side frame prep: culling, shadow matrices, the cached
-        static sun shadow map (kernel B1), light binning, uploads."""
+        static sun shadow map (kernel B1), light binning, uploads.  Under
+        TAA it steps the jitter first: the frame renders with the jittered
+        view-proj (culling keeps the un-jittered frustum)."""
         scene = self.scene
         scene.update_transform_tree()
         self.context.set_camera(self.camera)
+        taa_reproj = None
+        if self._jitter is not None:
+            jittered = self._jitter.step(self.context.view_projection)
+            taa_reproj = self._jitter.reproject_matrix()
+            self.context.view_projection = jittered
         vis = scene.gather_visible_opaque_renderables(self.context.frustum)
         object_mask = np.zeros(self.packed.num_objects, bool)
         object_mask[vis] = True
@@ -748,13 +947,29 @@ class SceneViewerApplication:
         if lights is not None:
             params["lights"] = lights
         params.update(self._view_params(self.context, lights))
+        if self._jitter is not None:
+            # Last frame's node transforms for the motion vectors (the
+            # first frame reprojects onto itself), the previous
+            # un-jittered view-proj, and this frame's jitter for FSR2.
+            prev_world = world if self._mv_prev is None else self._mv_prev
+            params["external"]["prev_world"] = self._t(prev_world)
+            params["prev_vp_uv"] = self._t(
+                TAA.UV_REMAP @ self._jitter._saved_nojitter[0])
+            params["taa_reproj"] = self._t(taa_reproj)
+            self._mv_prev = world.copy()
+            if self._use_fsr2:
+                params["fsr2_jitter"] = self._t(
+                    self._jitter.last_jitter_uv())
         self._param_cache = (self._frame_sig(frame_time), params)
         return params
 
     def render_frame(self, frame_time: float, elapsed_time: float):
-        """One frame -> (H, W, 4) uint8 backbuffer on the app's device."""
+        """One frame -> (H, W, 4) uint8 backbuffer on the app's device.
+        A still camera reuses the last frame's params, except under TAA,
+        where every frame steps the jitter."""
         cached = self._param_cache
-        if cached is not None and cached[0] == self._frame_sig(frame_time):
+        if cached is not None and self._jitter is None \
+                and cached[0] == self._frame_sig(frame_time):
             params = cached[1]
         else:
             params = self.build_frame_params(frame_time)
@@ -767,18 +982,45 @@ class SceneViewerApplication:
         last backbuffer on the device.  camera_orbit > 0 yaws the camera
         by that many radians per frame (view params and light bins per
         frame; culling masks stay at frame 0's, as in the reference's
-        chained bench)."""
+        chained bench).  Under TAA the camera stays still and
+        camera_orbit is ignored, as in the reference: each frame takes
+        its own jittered view-proj (and FSR2 jitter) from the host-side
+        jitter sequence, the rest of frame 0's params stay."""
         cached = self._param_cache
         if cached is None or cached[0] != self._frame_sig(frame_time):
             self.build_frame_params(frame_time)
             cached = self._param_cache
+            if self._jitter is not None:
+                # the jitter bank below regenerates frame 0's step
+                self._jitter.unstep()
         params = cached[1]
+        if self._jitter is not None:
+            return self._chain_jittered(params, n)
         okey = (n, camera_orbit, cached[0])
         if self._orbit_cache is None or self._orbit_cache[0] != okey:
             self._orbit_cache = (okey, self._orbit_banks(params, n,
                                                          camera_orbit))
         out = None
         for bank in self._orbit_cache[1]:
+            out, self._history = self.graph.execute({**params, **bank},
+                                                    self._history)
+        return out
+
+    def _chain_jittered(self, params: dict, n: int):
+        """n frames of a still, jittered camera: the un-jittered view-proj
+        is constant, so the reprojection params stay valid."""
+        vp = self._jitter._saved_nojitter[-1]
+        banks = []
+        for _ in range(n):
+            jit_vp = self._jitter.step(vp)
+            bank = {"view_proj": self._t(jit_vp),
+                    "inv_view_proj": self._t(
+                        np.linalg.inv(jit_vp).astype(np.float32))}
+            if self._use_fsr2:
+                bank["fsr2_jitter"] = self._t(self._jitter.last_jitter_uv())
+            banks.append(bank)
+        out = None
+        for bank in banks:
             out, self._history = self.graph.execute({**params, **bank},
                                                     self._history)
         return out

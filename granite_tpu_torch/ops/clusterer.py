@@ -4,7 +4,9 @@ reference renderer/lights/clusterer + clusterer_bindless_binning.comp).
 Lights are packed into a fixed-capacity table, binned into logarithmic
 view-depth slices and into screen tiles; both bins are 32-bit masks
 (int32 here, one word for the <= 32 lights the slice supports).  The
-per-pixel light loop itself lives in kernel B4 (ops/shade_fused.py).
+per-pixel light loop itself lives in kernel B4 (ops/shade_fused.py);
+positional_light_color is the same light term for the fog's per-froxel
+loop (ops/volumetric_fog.py).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+MIN_POINT_DIST = 0.1
 
 
 class LightBuffer(NamedTuple):
@@ -130,3 +134,24 @@ def bin_lights_tiles(lights: LightBuffer, view_proj, width: int,
     overlap = (in_y.T[:, None, :] & in_x.T[None, :, :]
                & alive[None, None, :])
     return _masks_from_overlap(overlap)
+
+
+def positional_light_color(lights: LightBuffer, i: int, world_pos):
+    """Light i's radiance at world_pos (compute_point_color /
+    compute_spot_color): inverse-square with a 1 - smoothstep falloff over
+    the last 10% of the radius, times the squared cone ramp for a spot.
+    -> (color (..., 3), direction to the light (..., 3))."""
+    full = world_pos - lights.pos[i]
+    dist = torch.sqrt((full * full).sum(-1).clamp_min(1e-12))
+    dist = dist.clamp_min(MIN_POINT_DIST)
+    ldir = -full / dist[..., None]
+    x = dist * lights.inv_radius[i]
+    t = ((x - 0.9) / 0.1).clamp(0.0, 1.0)
+    static_falloff = 1.0 - t * t * (3.0 - 2.0 * t)
+    cone = ((-ldir * lights.dir[i]).sum(-1) * lights.spot_scale_bias[i, 0]
+            + lights.spot_scale_bias[i, 1]).clamp(0.0, 1.0)
+    cone = cone * cone
+    falloff = torch.where(lights.is_spot[i] > 0.5, cone,
+                          torch.ones_like(cone)) * static_falloff
+    color = lights.color[i] * (falloff / (dist * dist))[..., None]
+    return color, ldir

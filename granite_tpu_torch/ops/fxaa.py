@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .hdr import sample_bilinear_packed
+from .hdr import sample_bilinear_packed, shift
 from .texture import quad_pack2d
 
 EDGE_THRESHOLD = 1.0 / 8.0
@@ -29,23 +29,6 @@ def _luma(rgb):
     # cost a host-to-device copy per call on the card.
     return rgb[..., 0] * _LUMA[0] + rgb[..., 1] * _LUMA[1] \
         + rgb[..., 2] * _LUMA[2]
-
-
-def shift(img, dy: int, dx: int):
-    """out[y, x] = img[clamp(y + dy), clamp(x + dx)] (edge padding) for an
-    (H, W, ...) image."""
-    h, w = img.shape[:2]
-    if dy:
-        k = min(abs(dy), h)
-        edge = (img[-1:] if dy > 0 else img[:1]).expand(k, *img.shape[1:])
-        img = torch.cat([img[k:], edge] if dy > 0 else [edge, img[:h - k]])
-    if dx:
-        k = min(abs(dx), w)
-        edge = (img[:, -1:] if dx > 0 else img[:, :1]) \
-            .expand(h, k, *img.shape[2:])
-        img = torch.cat([img[:, k:], edge] if dx > 0
-                        else [edge, img[:, :w - k]], dim=1)
-    return img
 
 
 def fxaa(rgb, width: int, height: int):

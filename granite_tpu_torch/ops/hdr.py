@@ -7,7 +7,8 @@ by 1-0.5^dt) -> 4 bloom downsamples (9 taps at +-1.75 texels, the first
 with temporal feedback 1-0.001^dt) -> 2 upsamples (+-0.875 texels) ->
 Uncharted2 filmic tonemap (white 11.2).  Exact 2:1 and integer ratios
 take the gather-free separable forms, others the bilinear tap form,
-as in the reference.
+as in the reference.  After an upscale to display size the tonemapped
+image gets the 4-neighbour unsharp mask (`sharpen`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,23 @@ def clamped_floor(x, hi: int):
     texel, as XLA's float->int conversion does (a plain torch cast maps
     them all to INT_MIN, i.e. texel 0); NaN goes to texel 0."""
     return torch.nan_to_num(torch.floor(x), nan=0.0).clamp(0, hi)
+
+
+def shift(img, dy: int, dx: int):
+    """out[y, x] = img[clamp(y + dy), clamp(x + dx)] (edge padding) for an
+    (H, W, ...) image: the reference's pad-and-slice `_shift`."""
+    h, w = img.shape[:2]
+    if dy:
+        k = min(abs(dy), h)
+        edge = (img[-1:] if dy > 0 else img[:1]).expand(k, *img.shape[1:])
+        img = torch.cat([img[k:], edge] if dy > 0 else [edge, img[:h - k]])
+    if dx:
+        k = min(abs(dx), w)
+        edge = (img[:, -1:] if dx > 0 else img[:, :1]) \
+            .expand(h, k, *img.shape[2:])
+        img = torch.cat([img[:, k:], edge] if dx > 0
+                        else [edge, img[:, :w - k]], dim=1)
+    return img
 
 
 def _sample_bilinear_uv(img, u, v):
@@ -90,7 +108,7 @@ def _upsample2_axis(img, axis: int):
     return out.movedim(0, axis)
 
 
-def _uv_grid(out_h: int, out_w: int, device):
+def uv_grid(out_h: int, out_w: int, device):
     u = (torch.arange(out_w, dtype=torch.float32, device=device) + 0.5) \
         / out_w
     v = (torch.arange(out_h, dtype=torch.float32, device=device) + 0.5) \
@@ -109,7 +127,7 @@ def resize_bilinear(img, out_h: int, out_w: int):
     if out_h % h == 0 and out_w % w == 0 and out_h // h == out_w // w:
         return _upsample_axis_int(
             _upsample_axis_int(img, out_h // h, 0), out_w // w, 1)
-    uu, vv = _uv_grid(out_h, out_w, img.device)
+    uu, vv = uv_grid(out_h, out_w, img.device)
     return _sample_bilinear_uv(img, uu, vv)
 
 
@@ -148,7 +166,7 @@ _DOWN2_KERNEL = (0.0625, 0.1875, 0.25, 0.25, 0.1875, 0.0625)
 
 def _taps(img, out_h: int, out_w: int, taps):
     in_h, in_w = img.shape[:2]
-    uu, vv = _uv_grid(out_h, out_w, img.device)
+    uu, vv = uv_grid(out_h, out_w, img.device)
     acc = 0.0
     for wgt, dx, dy in taps:
         acc = acc + wgt * _sample_bilinear_uv(img, uu + dx / in_w,
@@ -199,3 +217,12 @@ def tonemap(hdr, bloom, avg_log_lum=None):
     white_scale = 1.0 / ((_W * (_A * _W + _C * _B) + _D * _E)
                          / (_W * (_A * _W + _B) + _D * _F) - _E / _F)
     return _uncharted2(hdr) * white_scale
+
+
+def sharpen(img):
+    """Post-upscale sharpen: unsharp mask (weight 0.25) over the
+    4-neighbour laplacian (edge clamped), clipped to [0, 1]."""
+    lap = 4.0 * img
+    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        lap = lap - shift(img, dy, dx)
+    return (img + 0.25 * lap).clamp(0.0, 1.0)

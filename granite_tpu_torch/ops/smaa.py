@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .fxaa import shift
+from .hdr import shift
 
 EDGE_THRESHOLD = 0.1
 LOCAL_CONTRAST_FACTOR = 2.0

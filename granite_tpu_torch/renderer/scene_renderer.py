@@ -34,7 +34,7 @@ from ..assets.texture_array import (
     FLAT_NORMAL_TEXTURE, TextureArrayBuilder, WHITE_TEXTURE,
 )
 from ..ops import raster as R
-from ..ops.hdr import resize_bilinear
+from ..ops.hdr import resize_bilinear, uv_grid
 from ..ops.light_shadows import topk_shadow_terms
 from ..ops.raster_binned import SPAN_H, SPAN_W, TILE_H, TILE_W, \
     rasterize_binned
@@ -509,6 +509,34 @@ def fused_raster_surface(scene: PackedScene, clip, object_mask,
     return _resolve_surface(scene, setup, world_pos, world_normal,
                             world_tangent, width, height, lod_bias,
                             prev_world_pos, max_visible, material_textures)
+
+
+def _safe_w(w):
+    """|w| floored at 1e-12, keeping w's sign (w = 0 counts as +)."""
+    return w.abs().clamp_min(1e-12) * torch.sign(
+        torch.where(w == 0, torch.ones_like(w), w))
+
+
+def motion_vectors(prev_pos, covered, depth, prev_vp_uv, cam_reproj,
+                   width: int, height: int):
+    """Per-pixel motion vectors mv = uv_cur - uv_prev (reconstruct_mv).
+
+    Covered pixels reproject the surface's last-frame world position
+    (resolved through B2's PLANE_PREV) by the previous un-jittered
+    view-proj; background pixels reproject the depth buffer by the camera
+    alone.  prev_vp_uv: (4, 4) uv_remap @ prev view-proj; cam_reproj:
+    (4, 4) TemporalJitter.reproject_matrix()."""
+    uu, vv = uv_grid(height, width, depth.device)
+    uv = torch.stack([uu, vv], dim=-1)
+    m = prev_vp_uv
+    xy = prev_pos @ m[:2, :3].T + m[:2, 3]
+    w = prev_pos @ m[3, :3] + m[3, 3]
+    uv_obj = xy / _safe_w(w)[..., None]
+    ndc = torch.cat([2 * uv - 1.0, depth[..., None],
+                     torch.ones_like(depth)[..., None]], dim=-1)
+    rp = ndc @ cam_reproj.T
+    uv_cam = rp[..., :2] / _safe_w(rp[..., 3:4])
+    return uv - torch.where(covered[..., None], uv_obj, uv_cam)
 
 
 # ---------------------------------------------------------------------------

@@ -192,10 +192,11 @@ def test_hdr_chain_ops_match():
 
 def test_unsupported_knob_raises():
     with pytest.raises(NotImplementedError):
-        _render_port({**CONFIGS["deferred_hdr"], "postAA": "taa"})
+        _render_port({**CONFIGS["deferred_taa_fog"],
+                      "volumetricFogRegions": True})
     with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
-    for knob in ({"postAA": "fxaa2phase"}, {"postAA": "smaaT2X"},
+    for knob in ({"msaa": 4}, {"ocean": True},
                  {"directionalLightShadowsCascaded": True}):
         with pytest.raises(NotImplementedError):
             _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
