@@ -4,27 +4,42 @@
 
 1. Probe: card name and power limit, torch/CUDA versions, nvcc; builds
    the Hopper kernels from granite_tpu_torch/csrc, one nvcc per source
-   in parallel (build seconds).
+   in parallel (build seconds), and reads each CUDA kernel's registers,
+   local (spill) bytes and static shared memory (cudaFuncGetAttributes).
 2. One phase per kernel at the bench frame's shapes (Sponza-class bench
    scene, 1920x1080, the bench config): the kernel and its plain PyTorch
-   version on the same inputs on the card, compared, both timed.
-     B1 sun shadow map 2048^2: depth and triangle ids exact.
+   version on the same inputs on the card, compared, both timed, and the
+   least time the card could take for the same work (bound).
+     B1 sun shadow map 2048^2, and one 512^2 slice of the clustered light
+        shadow atlas: depth and triangle ids exact.
      B2 G-buffer raster + resolve: coverage and depth exact, planes at
         tests/test_raster_fused.py's tolerances.
      B3 material (f16, C=12) and environment (f32, C=4) fetch: 1e-6.
      B3T VSM moment fetch, 2048^2 moments of the sun map at the bench
-        view's half-res coordinates (960x540): 1e-6.
+        view's half-res coordinates (960x540): 1e-6; its yardstick is
+        F.grid_sample on the same coordinates (library_ms).
      B4 deferred lighting: 3e-4 of the output's magnitude; once without
         and once with the AO plane (has_ao, from ops/ssao at 1080p).
    B2 and B4 again at 1440x810, the FSR2 render size (a partial 128-px
    tile column; B2 with the previous-position planes, as under TAA), at
-   the same gates, compared on the viewport.
+   the same gates.  B1 and B2 are compared on the whole padded target.
+   Timing: a kernel's ms is device time, CUDA events around the replay
+   of a CUDA graph that captured N calls of its wrapper (the wrapper's
+   own small torch ops included), after a warm-up call; plain_ms and
+   library_ms use the same method where the call can be captured, the
+   plain versions (which read sizes back to the host) CUDA events around
+   N calls.  bound_ms is the larger of the bytes the function must move
+   (inputs once, outputs once) at 3.35 TB/s and its FP32 operations at
+   67 TFLOP/s (the H100 SXM data sheet's peaks); for B1/B2 the inputs
+   are the lanes the walk needs of each binned packet row and the lanes
+   the resolve reads of each winning triangle (walk_bound).
 3. Main paths, each with the launch counts set to 0 just before it and
    read just after: SceneViewerApplication(device="cuda") on the bench
    scene at 1920x1080, 2 warm-up frames then 12 frames through
    render_frames_chained, ms/frame from CUDA events and the host clock;
    image gate, launch counts (every kernel of the path > 0) and the
-   raster overflow counters.
+   raster overflow counters; then 4 more frames under torch.profiler give
+   the device's busy time a frame, and 1 - busy / ms its idle share.
      deferred:      the bench config (deferred HDR), camera orbiting
                     (camera_orbit=0.01).
      forward:       the bench config with the forward renderer, VSM sun
@@ -41,9 +56,10 @@
    materialTileSampler "true", so both devices take the tiled VSM route),
    deferred_taa_fog, deferred_fsr2 and deferred_ssao_ssr.
 Any failure raises and exits non-zero without the final result line.
-The last two lines are the kernels JSON (ms and plain_ms of the 1080p
-bench-shape case, max_abs_err over every case of the kernel, launches
-summed over the main paths) and the card, then the result.
+The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
+1080p bench-shape case, the other cases under "cases", max_abs_err over
+every case of the kernel, launches summed over the main paths and per
+path, the compiler's attributes), the card, then the result.
 """
 
 from __future__ import annotations
@@ -77,21 +93,48 @@ CROSS_DEVICE = {"deferred_hdr": {}, "forward_shadow": {},
                 "forward_vsm_fxaa": {"materialTileSampler": "true"},
                 "deferred_taa_fog": {}, "deferred_fsr2": {},
                 "deferred_ssao_ssr": {}}
+# Least-time yardsticks of the bound (H100 SXM, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one (packet, pixel) test of B1/B2, as the plain
+# version writes it: 3 edges x (2 sub, 2 mul, 2 add) + the z plane's 6.
+EDGE_TEST_OPS = 24
+# Bytes of a packet row the walk needs: lanes 0-19 (edges, z plane,
+# offset) and 120-124 (zmax, bbox), i.e. the four 32-byte sectors of
+# lanes 0-23 and 120-127 that it stages.
+WALK_ROW_BYTES = 128
+# Lanes the resolve reads of a winner: B1 the tri id (lane 20); B2 the
+# payload lanes 21-75, and 76-84 too with the previous-position planes.
+B1_WINNER_LANES = 1
+B2_WINNER_LANES, B2_PREV_WINNER_LANES = 55, 64
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 12, 0.01
+TRACED_FRAMES = 4
 FRAME_TIME = 1.0 / 60.0
 PSNR_GATE_DB = 48.0
+# id -> (source, TPU kernel it replaces, its CUDA kernels' attribute
+# entry points (entry, variant, kernel)).
 KERNELS = {
     "B1": ("granite_tpu_torch/csrc/raster_binned.cu",
-           "granite_tpu/ops/raster_binned.py:669"),
+           "granite_tpu/ops/raster_binned.py:669",
+           (("granite_attrs_raster_walk", 0, "raster_walk_kernel"),
+            ("granite_attrs_raster_binned_resolve", 0,
+             "raster_binned_resolve_kernel"))),
     "B2": ("granite_tpu_torch/csrc/raster_fused.cu",
-           "granite_tpu/ops/raster_fused.py:110"),
+           "granite_tpu/ops/raster_fused.py:110",
+           (("granite_attrs_raster_walk", 0, "raster_walk_kernel"),
+            ("granite_attrs_raster_fused_resolve", 0,
+             "raster_fused_resolve_kernel"))),
     "B3": ("granite_tpu_torch/csrc/tile_sampler.cu",
-           "granite_tpu/ops/tile_sampler.py:420"),
+           "granite_tpu/ops/tile_sampler.py:420",
+           (("granite_attrs_sample_lod", 0, "sample_lod_kernel<half,12>"),
+            ("granite_attrs_sample_lod", 1, "sample_lod_kernel<float,4>"))),
     "B3T": ("granite_tpu_torch/csrc/tile_sampler.cu",
-            "granite_tpu/ops/tile_sampler.py:420"),
+            "granite_tpu/ops/tile_sampler.py:420",
+            (("granite_attrs_sample_bilinear", 0, "sample_bilinear_kernel"),)),
     "B4": ("granite_tpu_torch/csrc/shade_fused.cu",
-           "granite_tpu/ops/shade_fused.py:74"),
+           "granite_tpu/ops/shade_fused.py:74",
+           (("granite_attrs_shade_fused", 0, "shade_fused_kernel"),)),
 }
 
 
@@ -117,9 +160,10 @@ def image_gate(img):
                                                for m in means)), means
 
 
-def timed_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, one warm
-    call first)."""
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call, CUDA events around `reps` Python calls
+    (one warm call first): the host's time is included, so this is for
+    calls that cannot be captured (the plain versions read sizes back)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -131,6 +175,69 @@ def timed_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: `reps` calls captured in one
+    CUDA graph (after a warm call), replayed once to warm it, then timed
+    with CUDA events around one more replay."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int = 0) -> dict:
+    """The least time for the work: bytes at the memory rate or FP32
+    operations at the peak rate, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, ops=n_ops)
+
+
+def walk_bound(args, out_bytes: int, winner_lanes: int) -> dict:
+    """B1/B2's bound on these inputs.  Bytes: the bin offsets; each
+    binned packet row once at WALK_ROW_BYTES (rows past the bins and the
+    huge lists' spare capacity are never read); `winner_lanes` 4-byte
+    lanes of each distinct winning triangle (what the resolve reads);
+    the outputs.  Ops: EDGE_TEST_OPS for each (packet, pixel of its bbox
+    in a visiting tile) pair of the walk (raster_binned.walk_candidates)."""
+    import torch
+    from granite_tpu_torch.ops import raster_binned as RB
+    st, hs, pk, hr, tx, ty, span_w, span_h = args[:8]
+    rows = int(st[-1]) + int(hs[-1])
+    _depth, gid = RB.plain_winners(*args[:8])
+    ids = torch.cat([pk[:, RB.COL_TRI], hr[:, RB.COL_TRI]]) \
+        .contiguous().view(torch.int32)
+    winners = int(ids[gid[gid >= 0]].unique().numel())
+    cand = RB.walk_candidates(*args[:8])
+    _items, n_items = RB.walk_items(st, hs, tx, ty, span_w, span_h,
+                                    pk.shape[0], hr.shape[0])
+    b = bound(nbytes(st, hs) + rows * WALK_ROW_BYTES
+              + winners * winner_lanes * 4 + out_bytes,
+              cand * EDGE_TEST_OPS)
+    b.update(candidates=cand, work_items=int(n_items[0]), binned_rows=rows,
+             winners=winners)
+    return b
 
 
 def make_app(cfg: dict, bench_scene: bool, device: str):
@@ -160,7 +267,34 @@ def probe():
     path = K.build()
     K.library()
     log(f"kernels built in {time.monotonic() - t0:.2f} s -> {path}")
-    return card
+    attrs = {}
+    for kid, (_src, _rep, entries) in KERNELS.items():
+        attrs[kid] = {name: K.kernel_attributes(entry, variant)
+                      for entry, variant, name in entries}
+        log(f"{kid} attributes {attrs[kid]}")
+    return card, attrs
+
+
+def b1_case(args, label: str) -> dict:
+    """Kernel B1 against its plain version, depth and ids exact over the
+    whole padded target."""
+    import torch
+    from granite_tpu_torch.ops import raster_binned as RB
+    d_k, t_k = RB.raster_tiles(*args)
+    d_p, t_p = RB.raster_tiles_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(t_k, t_p), f"B1 {label} triangle ids differ from plain")
+    check(torch.equal(d_k, d_p), f"B1 {label} depth differs from plain")
+    err = float((d_k - d_p).abs().max())
+    ms = device_ms(lambda: RB.raster_tiles(*args), 10)
+    pms = host_ms(lambda: RB.raster_tiles_plain(*args), 1)
+    b = walk_bound(args, nbytes(d_k, t_k), B1_WINNER_LANES)
+    log(f"B1 {label} ({args[4]}x{args[5]} tiles, span {args[6]}x{args[7]}):"
+        f" {int((t_k >= 0).sum())} covered, exact; kernel {ms:.3f} ms, "
+        f"plain {pms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']};"
+        f" {b['bytes']} B, {b['binned_rows']} binned rows, {b['winners']} "
+        f"winners, {b['candidates']} pixel tests, {b['work_items']} slices)")
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=pms, **b)
 
 
 def b2_case(app, params, width: int, height: int, prev=False):
@@ -190,12 +324,10 @@ def b2_case(app, params, width: int, height: int, prev=False):
         max_visible=int(BENCH_CONFIG["rasterMaxVisible"]))
     tx, ty = -(-width // RB.TILE_W), -(-height // RB.TILE_H)
     args = (st, hs, pk, hr, tx, ty, span_w, span_h, prev)
-    # Compared on the viewport: rows and columns past it (the rest of the
-    # last 32x128 tile row and column) are padding the wrappers slice
-    # off, which the kernel walks and the plain version (bbox-clipped to
-    # the viewport) leaves empty.
-    p_k = RF.resolve_tiles(*args)[:, :height, :width]
-    p_p = RF.resolve_tiles_plain(*args)[:, :height, :width]
+    # Compared on the whole padded target: kernel and plain version both
+    # leave the tile padding past the viewport (outside every bbox) clear.
+    p_k = RF.resolve_tiles(*args)
+    p_p = RF.resolve_tiles_plain(*args)
     torch.cuda.synchronize()
     cov = p_p[RF.PLANE_COVERED] > 0.5
     check(torch.equal(p_k[RF.PLANE_COVERED], p_p[RF.PLANE_COVERED]),
@@ -209,13 +341,20 @@ def b2_case(app, params, width: int, height: int, prev=False):
     check(torch.allclose(p_k[derivs], p_p[derivs], rtol=5e-3, atol=5e-5),
           f"B2 {width}x{height} derivative planes outside tolerance")
     err = float((p_k - p_p).abs().max())
-    ms = timed_ms(lambda: RF.resolve_tiles(*args), 10)
-    pms = timed_ms(lambda: RF.resolve_tiles_plain(*args), 1)
+    ms = device_ms(lambda: RF.resolve_tiles(*args), 10)
+    pms = host_ms(lambda: RF.resolve_tiles_plain(*args), 1)
+    b = walk_bound(args, nbytes(p_k),
+                   B2_PREV_WINNER_LANES if prev else B2_WINNER_LANES)
     log(f"B2 G-buffer {width}x{height} ({tx}x{ty} tiles, prev planes "
         f"{prev}): {int(cov.sum())} covered, max abs err {err:.3g}; kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms; bins "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; {b['bytes']} B, {b['binned_rows']} binned rows, "
+        f"{b['winners']} winners, {b['candidates']} pixel tests, "
+        f"{b['work_items']} slices); bins "
         f"{ {k: int(v) for k, v in stats.items()} }")
-    return p_k, cov, dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    return (p_k[:, :height, :width], cov[:height, :width],
+            dict(case=f"{width}x{height}" + (" prev" if prev else ""),
+                 max_abs_err=err, ms=ms, plain_ms=pms, **b))
 
 
 def surface(app, planes, cov):
@@ -255,20 +394,54 @@ def b4_case(app, params, surf, label: str, ao=None) -> dict:
     err = float((o_k - o_p).abs().max())
     rel = err / max(1.0, float(o_p.abs().max()))
     check(rel < 3e-4, f"B4 {label} differs from plain by {rel} (relative)")
-    ms = timed_ms(lambda: shade_planes_fused(*args, **kkw), 20)
-    pms = timed_ms(lambda: shade_planes_plain(*args, **kkw), 3)
+    ms = device_ms(lambda: shade_planes_fused(*args, **kkw), 20)
+    pms = host_ms(lambda: shade_planes_plain(*args, **kkw), 3)
+    # bytes: every tensor input once (planes, light table, tile masks,
+    # uniforms) and the output; a few hundred FP32 ops a pixel against
+    # ~130 B is far under the card's 20 ops a byte, so bytes bound it.
+    b = bound(nbytes(*[a for a in args if hasattr(a, "element_size")], o_k))
     log(f"B4 lighting {label} {args[5]}x{args[4]} ({args[0].shape[0]} "
         f"planes, {args[1].shape[0]} lights, has_ao={int(kkw['has_ao'])}): "
         f"max abs err {err:.3g} (rel {rel:.3g}); kernel {ms:.3f} ms, plain "
-        f"{pms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms)
+        f"{pms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bytes']} B)")
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=pms, **b)
+
+
+def b1_sun_args(app, world):
+    """B1's inputs for the bench frame's 2048^2 sun shadow map."""
+    import torch
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    size = int(BENCH_CONFIG["shadowMapResolution"])
+    light_vp, mask = app.sun_shadow_view()
+    setup = SR.shadow_setup(app.packed, world, light_vp, size,
+                            torch.as_tensor(mask, device=world.device))
+    pk, st, hr, hs = RB.bin_triangles(setup, size, size, span_w=2,
+                                      span_h=8)[:4]
+    return (st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H, 2, 8)
+
+
+def b1_atlas_args(app):
+    """B1's inputs for the first 512^2 slice of the clustered light
+    shadow atlas (the first light's first face), as the viewer bakes it."""
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    size = int(app.config.clustered_lights_shadow_resolution)
+    _infos, _assigned, views = app.light_shadow_slices()
+    vp, mask = views[0]
+    world = app._t(app.scene.world[:app.scene.num_nodes])
+    setup = SR.shadow_setup(app.packed, world, vp, size, mask)
+    pk, st, hr, hs = RB.bin_triangles(setup, size, size, span_w=2,
+                                      span_h=8)[:4]
+    return (st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H, 2, 8)
 
 
 def kernel_phases(results: dict) -> None:
     """Each kernel against its plain version at the bench frame's shapes,
-    then B4 with AO, then B2 and B4 at the FSR2 render size."""
+    then B1 on an atlas slice, B4 with AO, then B2 and B4 at the FSR2
+    render size."""
     import torch
-    from granite_tpu_torch.ops import raster_binned as RB
+    import torch.nn.functional as F
     from granite_tpu_torch.ops import raster_fused as RF
     from granite_tpu_torch.ops.shadow import light_uvz, vsm_moments
     from granite_tpu_torch.ops.ssao import ssao, upsample_ao
@@ -282,28 +455,11 @@ def kernel_phases(results: dict) -> None:
     app.swapchain_updated(WIDTH, HEIGHT)
     params = app.build_frame_params(FRAME_TIME)
     packed = app.packed
-    world = params["external"]["world"]
 
-    # --- B1: the static sun shadow map -----------------------------------
-    size = int(BENCH_CONFIG["shadowMapResolution"])
-    light_vp, mask = app.sun_shadow_view()
-    setup = SR.shadow_setup(packed, world, light_vp, size,
-                            torch.as_tensor(mask, device=world.device))
-    tx, ty = size // RB.TILE_W, size // RB.TILE_H
-    bins = RB.bin_triangles(setup, size, size, span_w=2, span_h=8)[:4]
-    pk, st, hr, hs = bins
-    args = (st, hs, pk, hr, tx, ty, 2, 8)
-    d_k, t_k = RB.raster_tiles(*args)
-    d_p, t_p = RB.raster_tiles_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(t_k, t_p), "B1 triangle ids differ from plain")
-    check(torch.equal(d_k, d_p), "B1 depth differs from plain")
-    err = float((d_k - d_p).abs().max())
-    ms = timed_ms(lambda: RB.raster_tiles(*args), 10)
-    pms = timed_ms(lambda: RB.raster_tiles_plain(*args), 1)
-    log(f"B1 sun shadow {size}x{size}: {int((t_k >= 0).sum())} covered, "
-        f"exact; kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    results["B1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # --- B1: the static sun shadow map, then one atlas slice -------------
+    results["B1"] = b1_case(b1_sun_args(app, params["external"]["world"]),
+                            "sun shadow 2048^2")
+    atlas = b1_case(b1_atlas_args(app), "atlas slice 512^2")
 
     # --- B2: G-buffer raster + resolve ------------------------------------
     planes, cov, results["B2"] = b2_case(app, params, WIDTH, HEIGHT)
@@ -324,7 +480,7 @@ def kernel_phases(results: dict) -> None:
     refl, elod = SR.reflection(surf, params["camera_pos"], env.num_levels)
     eb, eu, ev = env_fetch_coords(env.strips, refl, surf["covered"])
     env_args = (env.strips, eb, eu, ev, elod.contiguous(), 4)
-    errs, ms, pms = [], 0.0, 0.0
+    errs, ms, pms, n_bytes = [], 0.0, 0.0, 0
     for name, a in (("material f16 C=12", mat_args),
                     ("environment f32 C=4", env_args)):
         o_k = sample_lod(*a)
@@ -332,14 +488,21 @@ def kernel_phases(results: dict) -> None:
         torch.cuda.synchronize()
         e = float((o_k - o_p).abs().max())
         check(e <= 1e-6, f"B3 {name} differs from plain by {e}")
-        k_ms = timed_ms(lambda a=a: sample_lod(*a), 20)
-        p_ms = timed_ms(lambda a=a: sample_lod_plain(*a), 3)
+        k_ms = device_ms(lambda a=a: sample_lod(*a), 20)
+        p_ms = host_ms(lambda a=a: sample_lod_plain(*a), 3)
+        # bytes: the per-pixel coordinates in and the texels out; the
+        # strips are left out (neighbouring pixels share their texels),
+        # so this is a lower bound.
+        case_bytes = nbytes(*a[1:5], o_k)
         log(f"B3 {name} {WIDTH}x{HEIGHT}: max abs err {e:.3g}; kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
+            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{bound(case_bytes)['bound_ms']:.4f} ms ({case_bytes} B)")
         errs.append(e)
         ms += k_ms
         pms += p_ms
-    results["B3"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=pms)
+        n_bytes += case_bytes
+    results["B3"] = dict(case="material + environment", max_abs_err=max(errs),
+                         ms=ms, plain_ms=pms, **bound(n_bytes))
 
     # --- B3T: VSM moment fetch (the forward path's sun term) -------------
     moments = vsm_moments(params["static_shadow_depth"])
@@ -352,12 +515,31 @@ def kernel_phases(results: dict) -> None:
     torch.cuda.synchronize()
     err = float((o_k - o_p).abs().max())
     check(err <= 1e-6, f"B3T differs from plain by {err}")
-    ms = timed_ms(lambda: sample_bilinear(*vsm_args), 20)
-    pms = timed_ms(lambda: sample_bilinear_plain(*vsm_args), 3)
+    ms = device_ms(lambda: sample_bilinear(*vsm_args), 20)
+    pms = host_ms(lambda: sample_bilinear_plain(*vsm_args), 3)
+    # Yardstick (not used by the port): F.grid_sample with border
+    # padding and align_corners=False unnormalises g = 2u - 1 to
+    # x = u*W - 0.5, B3T's coordinate; layout and grid made outside.
+    img = moments.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([2.0 * u - 1.0, 2.0 * v - 1.0], -1)[None].contiguous()
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib = library()[0].permute(1, 2, 0)
+    lib_err = float((lib[live] - o_k[live]).abs().max())
+    check(lib_err <= 1e-5, f"F.grid_sample differs from B3T by {lib_err}: "
+          "not the same function, so no yardstick")
+    lms = device_ms(library, 20)
+    b = bound(nbytes(*vsm_args[1:], o_k))
     log(f"B3T VSM moments {tuple(moments.shape)} at {tuple(u.shape)} "
         f"({int(live.sum())} live): max abs err {err:.3g}; kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms")
-    results["B3T"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+        f"{ms:.3f} ms, plain {pms:.3f} ms, grid_sample {lms:.3f} ms (max "
+        f"abs diff on live pixels {lib_err:.3g}), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bytes']} B, moments left out)")
+    results["B3T"] = dict(case="960x540 of 2048^2x2", max_abs_err=err, ms=ms,
+                          plain_ms=pms, library_ms=lms, **b)
 
     # --- B4: deferred lighting, then with the SSAO plane -----------------
     results["B4"] = b4_case(app, params, surf, "no AO")
@@ -380,11 +562,30 @@ def kernel_phases(results: dict) -> None:
     planes, cov, b2_fsr2 = b2_case(app, params, rw, rh, prev=True)
     b4_fsr2 = b4_case(app, params, surface(app, planes, cov),
                       "FSR2 render size")
-    for k, extra in (("B2", (b2_fsr2,)), ("B4", (ao_case, b4_fsr2))):
+    for k, extra in (("B1", (atlas,)), ("B2", (b2_fsr2,)),
+                     ("B4", (ao_case, b4_fsr2))):
         results[k]["max_abs_err"] = max(
             [results[k]["max_abs_err"]] + [c["max_abs_err"] for c in extra])
+        results[k]["cases"] = list(extra)
     del app
     torch.cuda.empty_cache()
+
+
+def device_busy_ms(app, frames: int) -> float:
+    """Device time a chained frame keeps the card busy: the kernels,
+    copies and sets torch.profiler records over `frames` more frames,
+    without the render graph's `pass:` ranges (they span kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        app.render_frames_chained(FRAME_TIME, FRAME_TIME, frames,
+                                  camera_orbit=ORBIT)
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.key.startswith("pass:")) / 1e3 / frames
 
 
 def main_path(name: str) -> dict:
@@ -412,6 +613,7 @@ def main_path(name: str) -> dict:
     host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
     ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
+    busy_ms = device_busy_ms(app, TRACED_FRAMES)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
@@ -421,7 +623,9 @@ def main_path(name: str) -> dict:
     log(f"main path {name} {WIDTH}x{HEIGHT} (renders {app._rw}x{app._rh}):"
         f" {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
         f"clock) over {FRAMES} frames, camera {camera}; setup + {WARMUP} "
-        f"warm-up frames {setup_s:.1f} s")
+        f"warm-up frames {setup_s:.1f} s; device busy {busy_ms:.3f} "
+        f"ms/frame over {TRACED_FRAMES} traced frames, idle share "
+        f"{1.0 - busy_ms / ms:.3f} of the untraced frame")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
     log(f"launches {name} {launches}")
@@ -462,17 +666,29 @@ def cross_device() -> None:
 
 def main() -> int:
     import torch
-    card = probe()
+    card, attrs = probe()
     results: dict = {}
     kernel_phases(results)
     by_path = {name: main_path(name) for name in MAIN_PATHS}
     cross_device()
-    # launches: the sum over the main paths (each counted from 0)
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(n[k] for n in by_path.values()),
-                **results[k]}
-               for k, (src, rep) in KERNELS.items()]
-    print(json.dumps({"kernels": kernels}))
+    kernels = []
+    for k, (src, rep, _entries) in KERNELS.items():
+        r = dict(results[k])
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            # launches: the sum over the main paths (each counted from 0)
+            "launches": sum(n[k] for n in by_path.values()),
+            "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
+            "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
+            "bound_by": r.pop("bound_by"),
+            "library_ms": r.pop("library_ms", None),
+            "launches_by_path": {p: n[k] for p, n in by_path.items()},
+            "attributes": attrs[k], **r})
+    print(json.dumps({
+        "timing": "ms: device time, CUDA graph of N wrapper calls replayed "
+                  "between CUDA events; plain_ms: CUDA events around N "
+                  "calls; library_ms: as ms",
+        "frames_per_path": WARMUP + FRAMES, "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from granite_tpu.math.muglm import look_at_quat
-from granite_tpu.scene.mesh_util import (
+from ..math.muglm import look_at_quat
+from ..scene.mesh_util import (
     cube_mesh, cylinder_mesh, plane_mesh, sphere_mesh,
 )
-from granite_tpu.scene.scene_formats import (
+from ..scene.scene_formats import (
     ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, LightData, MaterialData,
     NodeData, SceneInfo,
 )

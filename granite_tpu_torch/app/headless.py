@@ -17,8 +17,8 @@ import time
 import numpy as np
 import torch
 
-from granite_tpu.utils.image_io import save_png
-from granite_tpu.utils.logging import LOGI
+from ..utils.image_io import save_png
+from ..utils.logging import LOGI
 
 
 def add_headless_cli(parser: argparse.ArgumentParser) -> None:

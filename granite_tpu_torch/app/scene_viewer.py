@@ -30,22 +30,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from granite_tpu.math.frustum import Frustum
-from granite_tpu.math.muglm import quat_from_axis_angle, quat_rotate
-from granite_tpu.scene.camera import FPSCamera
-from granite_tpu.scene.scene import (
-    RENDERABLE_CASTS_SHADOW, RENDERABLE_OPAQUE, RENDERABLE_TRANSPARENT,
-    Scene,
-)
-from granite_tpu.scene.scene_formats import (
-    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, SceneInfo,
-)
-from granite_tpu.utils.logging import LOGI, LOGW
-
 from ..core.device import resolve_device
 from ..graph.render_graph import (
     AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
 )
+from ..math.frustum import Frustum
+from ..math.muglm import quat_from_axis_angle, quat_rotate
 from ..ops import hdr as HDR
 from ..ops import taa as TAA
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
@@ -70,6 +60,15 @@ from ..renderer.scene_renderer import (
     render_shadow_map, shade_surface_fused, transform_vertices,
     transparent_composite, world_positions,
 )
+from ..scene.camera import FPSCamera
+from ..scene.scene import (
+    RENDERABLE_CASTS_SHADOW, RENDERABLE_OPAQUE, RENDERABLE_TRANSPARENT,
+    Scene,
+)
+from ..scene.scene_formats import (
+    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, SceneInfo,
+)
+from ..utils.logging import LOGI, LOGW
 from .headless import headless_main
 
 _MAPPING = {
@@ -789,12 +788,10 @@ class SceneViewerApplication:
                 and self.info.lights[nd.light].type in (LIGHT_POINT,
                                                         LIGHT_SPOT)]
 
-    def _build_light_shadow_atlas(self):
-        """Clustered light shadow atlas, rendered once (kernel B1) from the
-        current pose and cached, as in the reference viewer."""
-        self._cluster_shadow = None
-        if not (self._has_lights and self.config.clustered_lights_shadows):
-            return
+    def light_shadow_slices(self):
+        """The clustered shadow atlas's views from the current pose:
+        (light infos, assign_slices' (vps, slice, kind), and per atlas
+        slice its (light view-proj, caster mask)); None without lights."""
         self.scene.update_transform_tree()
         self.scene.update_cached_transforms()
         infos = []
@@ -807,23 +804,36 @@ class SceneViewerApplication:
                 "outer": float(light.outer_cone),
                 "is_spot": light.type == LIGHT_SPOT})
         if not infos:
-            return
-        vps, slice_np, kind_np = assign_slices(infos)
-        size = int(self.config.clustered_lights_shadow_resolution)
-        world = self._t(self.scene.world[:self.scene.num_nodes])
+            return None
+        assigned = assign_slices(infos)
+        vps = assigned[0]
         caster = (self.packed.obj_flags & RENDERABLE_CASTS_SHADOW) != 0
         mn, mx = self.scene.r_world_min, self.scene.r_world_max
-        slices = []
+        views = []
         si = 0
         for li in infos:
             dist = np.linalg.norm(np.clip(li["pos"], mn, mx) - li["pos"],
                                   axis=1)
             mask = self._t(caster & (dist <= li["radius"]), torch.bool)
             nslices = 1 if li["is_spot"] else 6
-            for f in range(nslices):
-                slices.append(render_shadow_map(self.packed, world,
-                                                vps[si + f], size, mask))
+            views += [(vps[si + f], mask) for f in range(nslices)]
             si += nslices
+        return infos, assigned, views
+
+    def _build_light_shadow_atlas(self):
+        """Clustered light shadow atlas, rendered once (kernel B1) from the
+        current pose and cached, as in the reference viewer."""
+        self._cluster_shadow = None
+        if not (self._has_lights and self.config.clustered_lights_shadows):
+            return
+        found = self.light_shadow_slices()
+        if found is None:
+            return
+        infos, (vps, slice_np, kind_np), views = found
+        size = int(self.config.clustered_lights_shadow_resolution)
+        world = self._t(self.scene.world[:self.scene.num_nodes])
+        slices = [render_shadow_map(self.packed, world, vp, size, mask)
+                  for vp, mask in views]
         self._cluster_shadow = {
             "atlas_flat": pack_atlas(torch.stack(slices)),
             "vps_np": vps, "size": size,

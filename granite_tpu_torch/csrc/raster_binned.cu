@@ -1,68 +1,60 @@
 // Kernel B1: depth-only binned rasterization into a visibility buffer.
 //
 // Replaces granite_tpu/ops/raster_binned.py:_raster_tile_kernel (reached
-// through rasterize_binned).  One block per 32x128 tile walks its exact
-// bin, its window bins and its row's huge list (raster_walk.cuh) and
-// writes depth (f32, reverse-Z, 0 = clear) and the winning triangle id
-// (int32, -1 = none) for the padded (tiles_y*32, tiles_x*128) target.
+// through rasterize_binned).  Two phases on one stream: the tile walk of
+// raster_walk.cu merges every slice of the work list into per-pixel keys,
+// then one thread per pixel turns its key into depth (f32, reverse-Z,
+// 0 = clear) and the winning triangle id (int32, -1 = none) for the
+// padded (tiles_y*32, tiles_x*128) target.
 //
-// Bound: FP32 arithmetic of the edge/z tests (see raster_walk.cuh); the
-// outputs are 8 bytes a pixel.  Used for the 2048^2 sun shadow map and
-// the 48 clustered-light atlas slices (512^2) of the bench frame.
+// Bound: the walk's FP32 tests (raster_walk.cu); the resolve moves 8 B of
+// key in and 8 B out a pixel, plus the winner's id lane.  Used for the
+// 2048^2 sun shadow map and the 48 clustered-light atlas slices (512^2).
 
+#include "kernel_attrs.cuh"
 #include "raster_walk.cuh"
 
 namespace granite {
 
-__global__ void __launch_bounds__(WALK_THREADS)
-raster_binned_kernel(const int* __restrict__ starts,
-                     const int* __restrict__ huge_starts,
-                     const float* __restrict__ packets,
-                     const float* __restrict__ huge_rows,
-                     float* __restrict__ depth_out, int* __restrict__ tri_out,
-                     int tiles_x, int tiles_y, int span_w, int span_h) {
-  __shared__ WalkShared sh;
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = (threadIdx.x / TILE_W) * PIX;
-  const float px = (float)(tx * TILE_W + col) + 0.5f;
-  const float py0 = (float)(ty * TILE_H + row0) + 0.5f;
-  float depth[PIX];
-  int win[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    depth[i] = 0.0f;
-    win[i] = -1;
+__global__ void __launch_bounds__(RESOLVE_THREADS)
+raster_binned_resolve_kernel(WalkArgs a, float* __restrict__ depth,
+                             int* __restrict__ tri, int npix) {
+  const int p = blockIdx.x * RESOLVE_THREADS + threadIdx.x;
+  if (p >= npix) return;
+  const unsigned long long key = a.keys[p];
+  if (key == 0ull) {
+    depth[p] = 0.0f;
+    tri[p] = -1;
+    return;
   }
-  // B1 walks the small array with n_packets unused (ids, not rows).
-  walk_tile<false>(starts, huge_starts, packets, 0, huge_rows, tiles_x,
-                   tiles_y, span_w, span_h, tx, ty, px, py0, depth, win, sh);
-  const int pw = tiles_x * TILE_W;
-  const size_t x = (size_t)(tx * TILE_W + col);
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t y = (size_t)(ty * TILE_H + row0 + i);
-    depth_out[y * pw + x] = depth[i];
-    tri_out[y * pw + x] = win[i];
-  }
+  const float* row = winner_row(key, a);
+  depth[p] = __uint_as_float((unsigned int)(key >> 32));
+  tri[p] = __float_as_int(__ldg(row + COL_TRI));
 }
 
 }  // namespace granite
 
-extern "C" int granite_raster_binned(const int* starts, const int* huge_starts,
+extern "C" int granite_raster_binned(const int* items, const int* n_items,
                                      const float* packets,
-                                     const float* huge_rows, float* depth,
-                                     int* tri, int tiles_x, int tiles_y,
-                                     int span_w, int span_h,
+                                     const float* huge_rows,
+                                     unsigned long long* scratch,
+                                     float* depth, int* tri, int tiles_x,
+                                     int tiles_y, int n_window, int stride,
                                      cudaStream_t stream) {
-  const int ntiles = tiles_x * tiles_y;
-  if (ntiles > 0) {
-    granite::raster_binned_kernel<<<ntiles, granite::WALK_THREADS, 0,
-                                    stream>>>(
-        starts, huge_starts, packets, huge_rows, depth, tri, tiles_x,
-        tiles_y, span_w, span_h);
+  const granite::WalkArgs a{reinterpret_cast<const int4*>(items), n_items,
+                            packets, huge_rows, scratch, tiles_x,
+                            tiles_y, n_window, (unsigned int)stride};
+  const int err = granite::launch_walk(a, stream);
+  if (err != 0) return err;
+  const int npix = tiles_y * granite::TILE_H * tiles_x * granite::TILE_W;
+  const int t = granite::RESOLVE_THREADS;
+  if (npix > 0) {
+    granite::raster_binned_resolve_kernel<<<(npix + t - 1) / t, t, 0,
+                                            stream>>>(a, depth, tri, npix);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int granite_attrs_raster_binned_resolve(int, int* out) {
+  return granite::kernel_attrs(granite::raster_binned_resolve_kernel, out);
 }

@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace granite {
 
 constexpr float PI = 3.1415628f;           // Granite's value (pbr.h)
@@ -237,4 +239,8 @@ extern "C" int granite_shade_fused(const float* planes, int n_planes, int ph,
         k_shadow, has_env, has_lights, has_ao, ambient, out);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int granite_attrs_shade_fused(int, int* out) {
+  return granite::kernel_attrs(granite::shade_fused_kernel, out);
 }

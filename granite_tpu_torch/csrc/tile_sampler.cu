@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attrs.cuh"
+
 namespace granite {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -210,4 +212,17 @@ extern "C" int granite_sample_bilinear(const float* img, int h, int w,
         reinterpret_cast<float2*>(out), n);
   }
   return (int)cudaGetLastError();
+}
+
+// variant: 0 f16 C=12 (materials), 1 f32 C=4 (environment).
+extern "C" int granite_attrs_sample_lod(int variant, int* out) {
+  return variant == 0
+             ? granite::kernel_attrs(granite::sample_lod_kernel<__half, 12>,
+                                     out)
+             : granite::kernel_attrs(granite::sample_lod_kernel<float, 4>,
+                                     out);
+}
+
+extern "C" int granite_attrs_sample_bilinear(int, int* out) {
+  return granite::kernel_attrs(granite::sample_bilinear_kernel, out);
 }

@@ -17,7 +17,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from granite_tpu.utils.logging import LOGI
+from ..utils.logging import LOGI
 
 
 class RenderGraphError(RuntimeError):

@@ -39,13 +39,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
-    # B1: starts, huge_starts, packets, huge_rows, depth, tri,
-    #     tiles_x, tiles_y, span_w, span_h, stream
-    "granite_raster_binned": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # B2: starts, huge_starts, packets, n_packet_rows, huge_rows, planes,
-    #     tiles_x, tiles_y, span_w, span_h, has_prev, stream
-    "granite_raster_resolve": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                               _I, _P),
+    # B1: items, n_items, packets, huge_rows, scratch, depth, tri,
+    #     tiles_x, tiles_y, n_window, stride, stream
+    "granite_raster_binned": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P),
+    # B2: items, n_items, packets, huge_rows, scratch, planes, tiles_x,
+    #     tiles_y, n_window, stride, has_prev, stream
+    "granite_raster_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P),
     # B3: strip, half, n_bundles, rows, size, channels, bundle, u, v, lod,
     #     out, n_pixels, levels, stream
     "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
@@ -142,6 +143,22 @@ def launch(kernel_id: str, entry: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} failed to launch: cudaError {err}")
     LAUNCHES[kernel_id] += 1
+
+
+def kernel_attributes(entry: str, variant: int = 0) -> dict:
+    """What the compiler gave one kernel (cudaFuncGetAttributes): registers
+    and local (spill) bytes a thread, static shared bytes a block.
+    `entry` is a kernel source's `granite_attrs_*` C entry point
+    (int variant, int out[4])."""
+    fn = getattr(library(), entry)
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(variant, out)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "static_shared_bytes": out[2], "max_threads": out[3]}
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from granite_tpu.math.muglm import look_at_matrix, perspective
-
+from ..math.muglm import look_at_matrix, perspective
 from .texture import quad_pack2d
 
 FACE_DIRS = np.array([

@@ -4,11 +4,12 @@ with kernel B2.
 Packets carry the resolve payload in lanes 21-84 (offset-folded
 adjugate, 3 corners x (pos, nrm, tan4, uv), base color and
 metallic/roughness factors, bundle id, emissive, 3 corners x previous
-world pos).  B2 walks each tile's bin ranges exactly like B1 but keeps
-the winning GLOBAL packet row per pixel; each pixel then loads its
-winner's payload straight from device memory (no per-tile payload
-table, so no capacity limit) and writes 32 attribute planes with
-perspective-correct interpolation and analytic UV derivatives.
+world pos).  B2 runs B1's walk (the slices of raster_binned.walk_items,
+merged per pixel into the winning packet's key); a resolve phase then
+loads each pixel's winning payload straight from device memory (no
+per-tile payload table, so no capacity limit) and writes 32 attribute
+planes with perspective-correct interpolation and analytic UV
+derivatives.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import torch
 from ..kernels import build as K
 from .raster import TriangleSetup, pixel_centers
 from .raster_binned import (
-    PACKET_F32, SPAN_H, SPAN_W, TILE_H, TILE_W, bin_triangles,
-    clamped_entries, plain_winners,
+    SPAN_H, SPAN_W, TILE_H, TILE_W, bin_triangles, clamped_entries,
+    plain_winners, walk_launch_args,
 )
 
 PAYLOAD_LO = 21       # payload lanes [21, 21 + 64)
@@ -136,8 +137,7 @@ def resolve_tiles(starts, huge_row_starts, packets, huge_rows,
                   tiles_x: int, tiles_y: int, span_w: int, span_h: int,
                   has_prev: bool):
     """Kernel B2 (replaces granite_tpu/ops/raster_fused.py _fused_kernel):
-    -> planes (32, ph, pw) f32, specified on the viewport only (see
-    raster_binned.raster_tiles)."""
+    -> planes (32, ph, pw) f32 (see raster_binned.raster_tiles)."""
     dev = packets.device
     if dev.type == "cpu":
         return resolve_tiles_plain(starts, huge_row_starts, packets,
@@ -145,23 +145,15 @@ def resolve_tiles(starts, huge_row_starts, packets, huge_rows,
                                    span_h, has_prev)
     if dev.type != "cuda":
         raise ValueError(f"resolve_tiles: unsupported device {dev}")
-    ntiles = tiles_x * tiles_y
-    K.check(starts, "starts", torch.int32, dev, 1)
-    K.check(huge_row_starts, "huge_row_starts", torch.int32, dev, 1)
-    K.check(packets, "packets", torch.float32, dev, 2)
-    K.check(huge_rows, "huge_rows", torch.float32, dev, 2)
-    if starts.shape[0] != 2 * ntiles + 1 or \
-            huge_row_starts.shape[0] != tiles_y + 1 or \
-            packets.shape[1] != PACKET_F32 or \
-            huge_rows.shape[1] != PACKET_F32:
-        raise ValueError("resolve_tiles: inconsistent bin arrays")
+    items, n_items, scratch, stride = walk_launch_args(
+        "resolve_tiles", starts, huge_row_starts, packets, huge_rows,
+        tiles_x, tiles_y, span_w, span_h)
     ph, pw = tiles_y * TILE_H, tiles_x * TILE_W
     planes = torch.empty((NUM_PLANES, ph, pw), dtype=torch.float32,
                          device=dev)
-    K.launch("B2", "granite_raster_resolve", K.ptr(starts),
-             K.ptr(huge_row_starts), K.ptr(packets), packets.shape[0],
-             K.ptr(huge_rows), K.ptr(planes), tiles_x, tiles_y, span_w,
-             span_h, int(has_prev))
+    K.launch("B2", "granite_raster_resolve", K.ptr(items), K.ptr(n_items),
+             K.ptr(packets), K.ptr(huge_rows), K.ptr(scratch), K.ptr(planes),
+             tiles_x, tiles_y, span_w * span_h, stride, int(has_prev))
     return planes
 
 

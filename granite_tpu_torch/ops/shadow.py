@@ -13,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from granite_tpu.math.muglm import look_at_matrix, ortho
-
+from ..math.muglm import look_at_matrix, ortho
 from .hdr import _sample_bilinear_uv, clamped_floor, resize_bilinear
 from .texture import quad_pack2d
 from .tile_sampler import sample_bilinear

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from granite_tpu.math.frustum import Frustum
+from ..math.frustum import Frustum
 
 
 class RenderContext:

@@ -23,13 +23,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from granite_tpu.scene.scene import (
-    RENDERABLE_CASTS_SHADOW, RENDERABLE_DYNAMIC, RENDERABLE_OPAQUE,
-    RENDERABLE_TRANSPARENT,
-)
-from granite_tpu.scene.scene_formats import ALPHA_MODE_BLEND, SceneInfo
-from granite_tpu.utils.logging import LOGI
-
 from ..assets.texture_array import (
     FLAT_NORMAL_TEXTURE, TextureArrayBuilder, WHITE_TEXTURE,
 )
@@ -51,6 +44,12 @@ from ..ops.shadow import (
 )
 from ..ops.texture import build_packed_lod_strip_np, lod_from_derivs
 from ..ops.tile_sampler import sample_lod
+from ..scene.scene import (
+    RENDERABLE_CASTS_SHADOW, RENDERABLE_DYNAMIC, RENDERABLE_OPAQUE,
+    RENDERABLE_TRANSPARENT,
+)
+from ..scene.scene_formats import ALPHA_MODE_BLEND, SceneInfo
+from ..utils.logging import LOGI
 from .environment import analytic_sky, eval_sh9, sample_environment
 
 MATERIAL_CHANNELS = 12   # base rgba | mr g,b | normal xyz | emissive rgb
@@ -194,8 +193,6 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
     num_static_verts = 0
     v_off = 0
     for block, node_idx, md, nd in instances:
-        if md.encoding == "meshlet" and md.positions is None:
-            md.decode_meshlets()
         v = len(md.positions)
         t = len(md.indices)
         pos_l.append(md.positions)

@@ -1,0 +1,46 @@
+"""Camera / FPSCamera (copy of the parts of granite_tpu/scene/camera.py
+the port uses; reference: renderer/camera.hpp:32,116).
+tests/test_torch_host_copies.py holds this copy equal to the original."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..math.muglm import (
+    INFINITE_FAR_PLANE, look_at_quat, mat4_cast, perspective, translate,
+)
+
+
+class Camera:
+    def __init__(self):
+        self.position = np.zeros(3, np.float32)
+        self.rotation = np.array([1, 0, 0, 0], np.float32)
+        self.fovy = 0.5 * np.pi * 0.55
+        self.aspect = 16 / 9
+        self.znear = 0.1
+        self.zfar = 1000.0
+
+    def look_at(self, eye, at, up=(0.0, 1.0, 0.0)) -> None:
+        self.position = np.asarray(eye, np.float32)
+        self.rotation = look_at_quat(np.asarray(at, np.float32)
+                                     - self.position, up)
+
+    def set_depth_range(self, znear: float, zfar: float) -> None:
+        self.znear = znear
+        self.zfar = zfar
+
+    def set_aspect(self, aspect: float) -> None:
+        self.aspect = aspect
+
+    def get_view(self) -> np.ndarray:
+        return mat4_cast(self.rotation) @ translate(-self.position)
+
+    def get_projection(self) -> np.ndarray:
+        return perspective(self.fovy, self.aspect, self.znear,
+                           self.zfar if self.zfar > 0 else
+                           INFINITE_FAR_PLANE)
+
+
+class FPSCamera(Camera):
+    """The viewer's camera (camera.hpp:116).  The viewer only places it,
+    so the original's fly controls (move, rotate) are left out."""

@@ -1,0 +1,190 @@
+"""Scene — SoA node hierarchy + visibility (copy of the parts of
+granite_tpu/scene/scene.py the port uses; reference: renderer/scene.hpp).
+
+Nodes are SoA arrays (parent, TRS); world transforms are updated level
+by level with batched matmuls.  Renderables are SoA too (node, mesh,
+flags, local AABB), and every gather query is one vectorized frustum
+cull over all AABBs.  The original's ECS bookkeeping, decals, fog
+regions and diffuse volumes are left out: no path of the port reads
+them.  tests/test_torch_host_copies.py holds this copy equal to the
+original.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..math.aabb import transform_aabbs
+from ..math.frustum import frustum_cull
+from ..math.transforms import compose_trs_batch
+
+RENDERABLE_OPAQUE = 1 << 0
+RENDERABLE_TRANSPARENT = 1 << 1
+RENDERABLE_CASTS_SHADOW = 1 << 2
+RENDERABLE_DYNAMIC = 1 << 3
+
+
+class Scene:
+    def __init__(self, capacity_nodes: int = 0):
+        cap = max(capacity_nodes, 64)
+        self._node_cap = cap
+        self.parent = np.full(cap, -1, np.int32)
+        self.translation = np.zeros((cap, 3), np.float32)
+        self.rotation = np.tile(np.array([1, 0, 0, 0], np.float32),
+                                (cap, 1))
+        self.scale = np.ones((cap, 3), np.float32)
+        self.world = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
+        self._n_nodes = capacity_nodes
+        self._levels_dirty = True
+        self._levels: list[np.ndarray] = []
+        # renderables SoA
+        self._n_renderables = 0
+        self.r_node = np.zeros(0, np.int32)
+        self.r_mesh = np.zeros(0, np.int32)
+        self.r_flags = np.zeros(0, np.int32)
+        self.r_aabb_min = np.zeros((0, 3), np.float32)
+        self.r_aabb_max = np.zeros((0, 3), np.float32)
+        self.r_world_min = np.zeros((0, 3), np.float32)
+        self.r_world_max = np.zeros((0, 3), np.float32)
+
+    # -- node management --------------------------------------------------------
+    def _grow_nodes(self) -> None:
+        """Amortized capacity doubling."""
+        cap = max(self._node_cap * 2, 64)
+        self._node_cap = cap
+
+        def grow(a, fill):
+            out = np.empty((cap,) + a.shape[1:], a.dtype)
+            out[:len(a)] = a
+            out[len(a):] = fill
+            return out
+        self.parent = grow(self.parent, -1)
+        self.translation = grow(self.translation, 0.0)
+        self.rotation = grow(self.rotation,
+                             np.array([1, 0, 0, 0], np.float32))
+        self.scale = grow(self.scale, 1.0)
+        self.world = grow(self.world, np.eye(4, dtype=np.float32))
+
+    def create_node(self, parent: int = -1, translation=None, rotation=None,
+                    scale=None) -> int:
+        idx = self._n_nodes
+        if idx >= self._node_cap:
+            self._grow_nodes()
+        self._n_nodes += 1
+        self.parent[idx] = parent
+        self.translation[idx] = 0.0 if translation is None else \
+            np.asarray(translation, np.float32)
+        self.rotation[idx] = (1, 0, 0, 0) if rotation is None else \
+            np.asarray(rotation, np.float32)
+        self.scale[idx] = 1.0 if scale is None else \
+            np.asarray(scale, np.float32)
+        self.world[idx] = np.eye(4, dtype=np.float32)
+        self._levels_dirty = True
+        return idx
+
+    def _rebuild_levels(self) -> None:
+        """Group nodes by tree depth for level-ordered batched updates."""
+        n = self._n_nodes
+        depth = np.zeros(n, np.int32)
+        parent = self.parent[:n]
+        for _ in range(64):
+            new_depth = np.where(parent >= 0, depth[np.maximum(parent, 0)] + 1,
+                                 0)
+            if np.array_equal(new_depth, depth):
+                break
+            depth = new_depth
+        self._levels = [np.nonzero(depth == d)[0].astype(np.int32)
+                        for d in range(int(depth.max()) + 1 if n else 0)]
+        self._levels_dirty = False
+
+    def update_transform_tree(self) -> None:
+        """Level-ordered batched world-matrix update (scene.hpp:127-130)."""
+        n = self._n_nodes
+        if n == 0:
+            return
+        if self._levels_dirty:
+            self._rebuild_levels()
+        local = compose_trs_batch(self.translation[:n], self.rotation[:n],
+                                  self.scale[:n])
+        world = self.world
+        for level in self._levels:
+            p = self.parent[level]
+            has_parent = p >= 0
+            lw = local[level]
+            if has_parent.any():
+                pw = world[np.maximum(p, 0)]
+                combined = np.matmul(pw, lw)
+                world[level] = np.where(has_parent[:, None, None], combined,
+                                        lw)
+            else:
+                world[level] = lw
+        self.update_cached_transforms()
+
+    def update_cached_transforms(self) -> None:
+        """World-space renderable AABBs in one vectorized pass."""
+        if len(self.r_node) == 0:
+            return
+        w = self.world[self.r_node]
+        self.r_world_min, self.r_world_max = transform_aabbs(
+            w, self.r_aabb_min, self.r_aabb_max)
+
+    # -- renderables --------------------------------------------------------------
+    def add_renderable(self, node: int, mesh: int, flags: int,
+                       aabb_min, aabb_max) -> int:
+        """Append a renderable; -> its row."""
+        n = self._n_renderables
+        cap = len(self._r_node_buf) if n else 0
+        if n >= cap:
+            newcap = max(cap * 2, 64)
+
+            def grow(name, shape, dtype):
+                buf = np.zeros((newcap,) + shape, dtype)
+                old = getattr(self, name, None)
+                if old is not None and len(old):
+                    buf[:len(old)] = old
+                return buf
+            self._r_node_buf = grow("_r_node_buf", (), np.int32)
+            self._r_mesh_buf = grow("_r_mesh_buf", (), np.int32)
+            self._r_flags_buf = grow("_r_flags_buf", (), np.int32)
+            self._r_amin_buf = grow("_r_amin_buf", (3,), np.float32)
+            self._r_amax_buf = grow("_r_amax_buf", (3,), np.float32)
+            self._r_wmin_buf = grow("_r_wmin_buf", (3,), np.float32)
+            self._r_wmax_buf = grow("_r_wmax_buf", (3,), np.float32)
+        self._r_node_buf[n] = node
+        self._r_mesh_buf[n] = mesh
+        self._r_flags_buf[n] = flags
+        self._r_amin_buf[n] = np.asarray(aabb_min, np.float32)
+        self._r_amax_buf[n] = np.asarray(aabb_max, np.float32)
+        self._n_renderables = m = n + 1
+        # Public views track the logical length (in-place writes flow
+        # through; slicing is O(1)).
+        self.r_node = self._r_node_buf[:m]
+        self.r_mesh = self._r_mesh_buf[:m]
+        self.r_flags = self._r_flags_buf[:m]
+        self.r_aabb_min = self._r_amin_buf[:m]
+        self.r_aabb_max = self._r_amax_buf[:m]
+        self.r_world_min = self._r_wmin_buf[:m]
+        self.r_world_max = self._r_wmax_buf[:m]
+        return n
+
+    # -- visibility queries (scene.hpp:133-163 gather_visible_*) -----------------
+    def _gather(self, planes, flag_mask: int) -> np.ndarray:
+        if len(self.r_node) == 0:
+            return np.zeros(0, np.int32)
+        sel = (self.r_flags & flag_mask) != 0
+        vis = frustum_cull(planes, self.r_world_min, self.r_world_max)
+        return np.nonzero(sel & vis)[0].astype(np.int32)
+
+    def gather_visible_opaque_renderables(self, frustum) -> np.ndarray:
+        return self._gather(frustum.planes, RENDERABLE_OPAQUE)
+
+    def gather_visible_transparent_renderables(self, frustum) -> np.ndarray:
+        return self._gather(frustum.planes, RENDERABLE_TRANSPARENT)
+
+    def gather_visible_static_shadow_renderables(self, frustum) -> np.ndarray:
+        mask = self._gather(frustum.planes, RENDERABLE_CASTS_SHADOW)
+        return mask[(self.r_flags[mask] & RENDERABLE_DYNAMIC) == 0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self._n_nodes

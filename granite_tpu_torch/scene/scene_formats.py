@@ -1,0 +1,163 @@
+"""Intermediate scene structs and mesh processing (copy of the parts of
+granite_tpu/scene/scene_formats.py the port uses; reference:
+renderer/formats/scene_formats.hpp).
+
+The records keep the fields the port reads or the scene builders set.
+MeshData keeps the classic SoA encoding only: the original's meshlet
+fields and its native MLT2 encode/decode hooks are left out until a
+path of the port renders meshlet-encoded meshes.
+tests/test_torch_host_copies.py holds this copy equal to the original.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+ALPHA_MODE_OPAQUE = 0
+ALPHA_MODE_MASK = 1
+ALPHA_MODE_BLEND = 2
+
+LIGHT_DIRECTIONAL = 0
+LIGHT_POINT = 1
+LIGHT_SPOT = 2
+
+
+@dataclass
+class MaterialData:
+    """PBR metallic-roughness record (scene_formats.hpp MaterialInfo)."""
+    name: str = ""
+    base_color_factor: np.ndarray = field(
+        default_factory=lambda: np.ones(4, np.float32))
+    metallic_factor: float = 1.0
+    roughness_factor: float = 1.0
+    emissive_factor: np.ndarray = field(
+        default_factory=lambda: np.zeros(3, np.float32))
+    base_color_image: Optional[int] = None       # image index
+    metallic_roughness_image: Optional[int] = None
+    normal_image: Optional[int] = None
+    emissive_image: Optional[int] = None
+    alpha_mode: int = ALPHA_MODE_OPAQUE
+    alpha_cutoff: float = 0.5
+    two_sided: bool = False
+
+
+@dataclass
+class MeshData:
+    """One primitive, SoA numpy arrays (scene_formats.hpp Mesh)."""
+    positions: np.ndarray = None                 # (V, 3) f32
+    normals: Optional[np.ndarray] = None         # (V, 3)
+    uvs: Optional[np.ndarray] = None             # (V, 2)
+    tangents: Optional[np.ndarray] = None        # (V, 4) xyz + handedness w
+    joints: Optional[np.ndarray] = None          # (V, 4) u16
+    weights: Optional[np.ndarray] = None         # (V, 4) f32
+    # Morph targets: per-target position/normal deltas.
+    morph_position_deltas: Optional[list] = None  # [T x (V, 3)]
+    morph_normal_deltas: Optional[list] = None    # [T x (V, 3)]
+    default_morph_weights: Optional[np.ndarray] = None  # (T,)
+    indices: np.ndarray = None                   # (T, 3) i32
+    material: int = -1
+    aabb_min: np.ndarray = None
+    aabb_max: np.ndarray = None
+
+    def finalize(self) -> "MeshData":
+        self.positions = np.ascontiguousarray(self.positions, np.float32)
+        if self.indices is None:
+            n = len(self.positions)
+            self.indices = np.arange(n, dtype=np.int32).reshape(-1, 3)
+        self.indices = np.ascontiguousarray(self.indices,
+                                            np.int32).reshape(-1, 3)
+        self.aabb_min = self.positions.min(axis=0)
+        self.aabb_max = self.positions.max(axis=0)
+        if self.normals is None:
+            self.normals = generate_normals(self.positions, self.indices)
+        if self.uvs is None:
+            self.uvs = np.zeros((len(self.positions), 2), np.float32)
+        if self.tangents is None:
+            self.tangents = generate_tangents(self.positions, self.normals,
+                                              self.uvs, self.indices)
+        return self
+
+
+@dataclass
+class NodeData:
+    name: str = ""
+    children: list = field(default_factory=list)
+    translation: np.ndarray = field(
+        default_factory=lambda: np.zeros(3, np.float32))
+    rotation: np.ndarray = field(                 # (w, x, y, z)
+        default_factory=lambda: np.array([1, 0, 0, 0], np.float32))
+    scale: np.ndarray = field(
+        default_factory=lambda: np.ones(3, np.float32))
+    meshes: list = field(default_factory=list)    # MeshData indices
+    light: Optional[int] = None
+    skin: Optional[int] = None
+    morph_weights: Optional[np.ndarray] = None    # node weights override
+
+
+@dataclass
+class LightData:
+    """KHR_lights_punctual record."""
+    type: int = LIGHT_DIRECTIONAL
+    color: np.ndarray = field(
+        default_factory=lambda: np.ones(3, np.float32))
+    intensity: float = 1.0
+    range: float = 0.0
+    inner_cone: float = 0.0
+    outer_cone: float = np.pi / 4
+
+
+@dataclass
+class SceneInfo:
+    meshes: list = field(default_factory=list)
+    materials: list = field(default_factory=list)
+    images: list = field(default_factory=list)     # numpy RGBA u8 arrays
+    image_srgb: list = field(default_factory=list)  # bool per image
+    nodes: list = field(default_factory=list)
+    roots: list = field(default_factory=list)
+    lights: list = field(default_factory=list)
+    skins: list = field(default_factory=list)
+
+
+def generate_normals(pos: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals (smooth accumulation)."""
+    p0, p1, p2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)               # area-weighted
+    n = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(n, idx[:, k], fn)
+    ln = np.linalg.norm(n, axis=1, keepdims=True)
+    return (n / np.maximum(ln, 1e-12)).astype(np.float32)
+
+
+def generate_tangents(pos: np.ndarray, nrm: np.ndarray, uv: np.ndarray,
+                      idx: np.ndarray) -> np.ndarray:
+    """Per-vertex tangents from UV gradients (mikktspace-style accumulation
+    without the full split/merge machinery; adequate for normal mapping)."""
+    p0, p1, p2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+    t0, t1, t2 = uv[idx[:, 0]], uv[idx[:, 1]], uv[idx[:, 2]]
+    e1, e2 = p1 - p0, p2 - p0
+    d1, d2 = t1 - t0, t2 - t0
+    r = d1[:, 0] * d2[:, 1] - d2[:, 0] * d1[:, 1]
+    r = np.where(np.abs(r) < 1e-12, 1.0, r)
+    tdir = (e1 * d2[:, 1:2] - e2 * d1[:, 1:2]) / r[:, None]
+    tan = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(tan, idx[:, k], tdir)
+    # Gram-Schmidt against the normal.
+    tan -= nrm * (tan * nrm).sum(axis=1, keepdims=True)
+    ln = np.linalg.norm(tan, axis=1, keepdims=True)
+    bad = ln[:, 0] < 1e-8
+    tan = tan / np.maximum(ln, 1e-12)
+    # Fallback tangent for degenerate UVs: any vector orthogonal to n.
+    if bad.any():
+        alt = np.cross(nrm[bad], np.array([0.0, 0.0, 1.0], np.float32))
+        alt_ln = np.linalg.norm(alt, axis=1, keepdims=True)
+        alt2 = np.cross(nrm[bad], np.array([0.0, 1.0, 0.0], np.float32))
+        alt = np.where(alt_ln > 1e-6, alt, alt2)
+        tan[bad] = alt / np.maximum(np.linalg.norm(alt, axis=1,
+                                                   keepdims=True), 1e-12)
+    w = np.ones((len(pos), 1), np.float32)
+    return np.concatenate([tan.astype(np.float32), w], axis=1)

@@ -1,0 +1,22 @@
+"""Logging with Granite's severity API (copy of the LOGI/LOGW surface of
+granite_tpu/utils/logging.py; reference: util/logging.hpp:48-78)."""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+_logger = logging.getLogger("granite_tpu_torch")
+if not _logger.handlers:
+    _handler = logging.StreamHandler(sys.stderr)
+    _handler.setFormatter(logging.Formatter("[%(levelname).1s] %(message)s"))
+    _logger.addHandler(_handler)
+    _logger.setLevel(logging.INFO)
+
+
+def LOGI(fmt: str, *args) -> None:
+    _logger.info(fmt % args if args else fmt)
+
+
+def LOGW(fmt: str, *args) -> None:
+    _logger.warning(fmt % args if args else fmt)

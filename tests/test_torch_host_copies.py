@@ -1,0 +1,248 @@
+"""The port's copies of the JAX package's host modules (math/, scene/,
+utils/) held equal to their originals on inputs made from a numpy seed.
+The copies are the same numpy code, so every comparison is exact."""
+
+import os
+from dataclasses import fields
+
+import numpy as np
+import pytest
+
+from granite_tpu.app.bench_scene import build_bench_scene as jax_bench
+from granite_tpu.math import frustum as JF
+from granite_tpu.math import muglm as JM
+from granite_tpu.math.aabb import transform_aabbs as jax_transform_aabbs
+from granite_tpu.math.transforms import compose_trs_batch as jax_compose
+from granite_tpu.scene import mesh_util as JMU
+from granite_tpu.scene import scene as JS
+from granite_tpu.scene.camera import FPSCamera as JaxCamera
+from granite_tpu.scene.scene_formats import (
+    generate_normals as jax_normals, generate_tangents as jax_tangents,
+)
+from granite_tpu.utils.image_io import load_image as jax_load_image
+from granite_tpu_torch.app import bench_scene as TB
+from granite_tpu_torch.math import frustum as TF
+from granite_tpu_torch.math import muglm as TM
+from granite_tpu_torch.math.aabb import transform_aabbs
+from granite_tpu_torch.math.transforms import compose_trs_batch
+from granite_tpu_torch.scene import mesh_util as TMU
+from granite_tpu_torch.scene import scene as TS
+from granite_tpu_torch.scene import scene_formats as TSF
+from granite_tpu_torch.scene.camera import FPSCamera
+from granite_tpu_torch.utils.image_io import load_image, save_png
+
+RNG_SEED = 4
+
+
+def _rng():
+    return np.random.default_rng(RNG_SEED)
+
+
+def _eq(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert np.array_equal(a, b, equal_nan=True)
+
+
+def _quat(rng):
+    return rng.normal(size=4).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["perspective_inf", "perspective_far",
+                                  "ortho", "look_at_matrix", "translate"])
+def test_muglm_matrices(name):
+    rng = _rng()
+    for _ in range(8):
+        fovy, aspect = rng.uniform(0.3, 2.0), rng.uniform(0.5, 3.0)
+        zn = rng.uniform(0.01, 1.0)
+        eye, at = rng.normal(size=3), rng.normal(size=3) * 4
+        lo = rng.uniform(-5, -1, size=3)
+        hi = rng.uniform(1, 5, size=3)
+        args = {"perspective_inf": ("perspective", (fovy, aspect, zn)),
+                "perspective_far": ("perspective", (fovy, aspect, zn, 100.0)),
+                "ortho": ("ortho", (lo[0], hi[0], lo[1], hi[1], 0.5, hi[2])),
+                "look_at_matrix": ("look_at_matrix", (eye, at, (0, 1, 0))),
+                "translate": ("translate", (eye,))}[name]
+        fn, a = args
+        _eq(getattr(TM, fn)(*a), getattr(JM, fn)(*a))
+
+
+@pytest.mark.parametrize("name", ["from_axis_angle", "mul", "normalize",
+                                  "rotate", "mat3_cast", "mat4_cast",
+                                  "look_at_quat", "from_mat3"])
+def test_muglm_quaternions(name):
+    rng = _rng()
+    for _ in range(16):
+        q, r = _quat(rng), _quat(rng)
+        v = rng.normal(size=3).astype(np.float32)
+        if name == "from_axis_angle":
+            a = (v, float(rng.uniform(-7, 7)))
+            fn = "quat_from_axis_angle"
+        elif name == "mul":
+            a, fn = (q, r), "quat_mul"
+        elif name == "normalize":
+            a, fn = (q,), "quat_normalize"
+        elif name == "rotate":
+            a, fn = (q, v), "quat_rotate"
+        elif name == "look_at_quat":
+            a, fn = (v, (0.0, 1.0, 0.0)), "look_at_quat"
+        elif name == "from_mat3":
+            # every branch: trace > 0 and each largest-diagonal case
+            a, fn = (JM.mat3_cast(q),), "_quat_from_mat3"
+        else:
+            a, fn = (q,), name
+        _eq(getattr(TM, fn)(*a), getattr(JM, fn)(*a))
+
+
+def test_frustum_planes_and_culling():
+    rng = _rng()
+    for _ in range(4):
+        vp = (JM.perspective(rng.uniform(0.5, 1.5), 16 / 9, 0.1)
+              @ JM.look_at_matrix(rng.normal(size=3), rng.normal(size=3) * 5,
+                                  (0, 1, 0))).astype(np.float32)
+        _eq(TF.extract_planes(vp), JF.extract_planes(vp))
+        _eq(TF.Frustum(vp).planes, JF.Frustum(vp).planes)
+        c = rng.normal(size=(200, 3)).astype(np.float32) * 20
+        e = rng.uniform(0.1, 3, size=(200, 3)).astype(np.float32)
+        got = TF.frustum_cull(TF.extract_planes(vp), c - e, c + e)
+        want = JF.frustum_cull(JF.extract_planes(vp), c - e, c + e)
+        _eq(got, want)
+        assert 0 < int(got.sum()) < 200
+
+
+def test_aabb_and_trs():
+    rng = _rng()
+    n = 50
+    t = rng.normal(size=(n, 3)).astype(np.float32)
+    r = rng.normal(size=(n, 4)).astype(np.float32)
+    s = rng.uniform(0.2, 3, size=(n, 3)).astype(np.float32)
+    _eq(compose_trs_batch(t, r, s), jax_compose(t, r, s))
+    w = jax_compose(t, r, s)
+    mn = rng.normal(size=(n, 3)).astype(np.float32)
+    mx = mn + rng.uniform(0, 2, size=(n, 3)).astype(np.float32)
+    for got, want in zip(transform_aabbs(w, mn, mx),
+                         jax_transform_aabbs(w, mn, mx)):
+        _eq(got, want)
+
+
+def test_fps_camera_view_and_projection():
+    rng = _rng()
+    for zfar in (0.0, 500.0):
+        cams = FPSCamera(), JaxCamera()
+        eye, at = rng.normal(size=3) * 3, rng.normal(size=3)
+        for cam in cams:
+            cam.look_at(eye, at)
+            cam.set_depth_range(0.05, zfar)
+            cam.set_aspect(1.7)
+        _eq(cams[0].position, cams[1].position)
+        _eq(cams[0].rotation, cams[1].rotation)
+        _eq(cams[0].get_view(), cams[1].get_view())
+        _eq(cams[0].get_projection(), cams[1].get_projection())
+        assert (cams[0].fovy, cams[0].aspect, cams[0].znear, cams[0].zfar) \
+            == (cams[1].fovy, cams[1].aspect, cams[1].znear, cams[1].zfar)
+
+
+def _same_mesh(a, b):
+    """b, the port's MeshData, equals a in every field it keeps; the
+    fields it left out hold their defaults in a."""
+    assert type(a).__name__ == type(b).__name__ == "MeshData"
+    kept = {f.name for f in fields(b)}
+    for f in fields(a):
+        x = getattr(a, f.name)
+        if f.name not in kept:
+            assert x == f.default, f.name    # None, "classic" or 0
+            continue
+        y = getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            _eq(x, y)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("name,args", [
+    ("cube_mesh", (3,)), ("sphere_mesh", (7, 2)), ("plane_mesh", (1, 5.0)),
+    ("cylinder_mesh", (9, 0))])
+def test_mesh_util_builders(name, args):
+    _same_mesh(getattr(JMU, name)(*args), getattr(TMU, name)(*args))
+
+
+def test_normals_and_tangents():
+    rng = _rng()
+    pos = rng.normal(size=(40, 3)).astype(np.float32)
+    idx = rng.integers(0, 40, size=(60, 3)).astype(np.int32)
+    uv = rng.uniform(size=(40, 2)).astype(np.float32)
+    uv[:5] = 0.0                       # degenerate UVs: fallback tangents
+    n = jax_normals(pos, idx)
+    _eq(TSF.generate_normals(pos, idx), n)
+    _eq(TSF.generate_tangents(pos, n, uv, idx), jax_tangents(pos, n, uv, idx))
+
+
+def test_scene_flags_and_constants():
+    for k in ("RENDERABLE_OPAQUE", "RENDERABLE_TRANSPARENT",
+              "RENDERABLE_CASTS_SHADOW", "RENDERABLE_DYNAMIC"):
+        assert getattr(TS, k) == getattr(JS, k), k
+    from granite_tpu.scene import scene_formats as JSF
+    for k in ("ALPHA_MODE_OPAQUE", "ALPHA_MODE_MASK", "ALPHA_MODE_BLEND",
+              "LIGHT_DIRECTIONAL", "LIGHT_POINT", "LIGHT_SPOT"):
+        assert getattr(TSF, k) == getattr(JSF, k), k
+
+
+def test_scene_transforms_and_gathers():
+    """The same node tree (more nodes than the initial capacity, so both
+    grow), renderables and frusta through both Scene classes."""
+    rng = _rng()
+    scenes = TS.Scene(), JS.Scene()
+    for i in range(90):
+        parent = int(rng.integers(-1, i)) if i else -1
+        t = rng.normal(size=3) * 4
+        r = _quat(rng)
+        s = rng.uniform(0.5, 2, size=3)
+        for sc in scenes:
+            sc.create_node(parent=parent, translation=t, rotation=r, scale=s)
+    for i in range(70):
+        flags = int(rng.integers(1, 16))
+        mn = rng.normal(size=3)
+        mx = mn + rng.uniform(0.1, 2, size=3)
+        node = int(rng.integers(0, 90))
+        for sc in scenes:
+            sc.add_renderable(node, i, flags, mn, mx)
+    for sc in scenes:
+        sc.update_transform_tree()
+    a, b = scenes
+    assert a.num_nodes == b.num_nodes == 90
+    _eq(a.world[:90], b.world[:90])
+    for k in ("r_node", "r_mesh", "r_flags", "r_world_min", "r_world_max"):
+        _eq(getattr(a, k), getattr(b, k))
+    for _ in range(3):
+        vp = (JM.perspective(1.0, 1.5, 0.1)
+              @ JM.look_at_matrix(rng.normal(size=3) * 10, np.zeros(3),
+                                  (0, 1, 0))).astype(np.float32)
+        fa, fb = TF.Frustum(vp), JF.Frustum(vp)
+        for q in ("gather_visible_opaque_renderables",
+                  "gather_visible_transparent_renderables",
+                  "gather_visible_static_shadow_renderables"):
+            _eq(getattr(a, q)(fa), getattr(b, q)(fb))
+
+
+def test_bench_scene_built_through_both():
+    """build_bench_scene through the port's copies (muglm, mesh_util,
+    scene_formats) equals the JAX package's, mesh by mesh."""
+    want, got = jax_bench(), TB.build_bench_scene()
+    assert len(want.meshes) == len(got.meshes)
+    for a, b in zip(want.meshes, got.meshes):
+        _same_mesh(a, b)
+    assert len(want.nodes) == len(got.nodes)
+    for a, b in zip(want.nodes, got.nodes):
+        _eq(a.rotation, b.rotation)
+        _eq(a.translation, b.translation)
+        assert a.meshes == b.meshes and a.light == b.light
+
+
+def test_image_io_round_trip(tmp_path):
+    rng = _rng()
+    img = rng.integers(0, 256, size=(9, 13, 4)).astype(np.uint8)
+    path = os.path.join(tmp_path, "x.png")
+    save_png(path, img)
+    for srgb in (False, True):
+        _eq(load_image(path, srgb), jax_load_image(path, srgb))
+    _eq(load_image(path), img)

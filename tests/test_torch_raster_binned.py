@@ -173,3 +173,86 @@ def test_entry_clamp_is_counted():
     starts = torch.tensor([0, n, n], dtype=torch.int32)
     huge = torch.tensor([0, 0], dtype=torch.int32)
     assert int(TB.clamped_entries(starts, huge, 1, 1, 2, 4)) == 7
+
+
+def _split_case():
+    """One exact bin far longer than a slice (random small triangles plus
+    40 copies of one triangle at one depth, all tying), window triangles
+    over two tiles of a row and a screen-filling triangle, which a 2x1
+    window sends to the huge lists."""
+    rng = np.random.RandomState(7)
+    n = 60
+    centers = np.array([-0.7, -0.6]) + rng.uniform(-0.15, 0.15, (n, 1, 2))
+    small = centers + rng.uniform(-0.05, 0.05, (n, 3, 2))
+    small_z = np.repeat(rng.uniform(0.2, 0.9, n), 3)
+    tie = np.tile(np.array([[-0.72, -0.62], [-0.6, -0.6], [-0.66, -0.5]]),
+                  (40, 1))
+    window = np.array([0.0, 0.0]) + rng.uniform(-0.3, 0.3, (10, 3, 2))
+    huge = np.array([[-4, -4], [4, -4], [0, 4]], np.float64)
+    xy = np.concatenate([small.reshape(-1, 2), tie,
+                         window.reshape(-1, 2), huge])
+    z = np.concatenate([small_z, np.full(120, 0.5),
+                        np.repeat(rng.uniform(0.2, 0.9, 10), 3),
+                        np.full(3, 0.1)])
+    clip = np.concatenate([xy, z[:, None], np.ones((len(z), 1))],
+                          1).astype(np.float32)
+    idx = np.arange(len(clip), dtype=np.int32).reshape(-1, 3)
+    return TR.setup_triangles(torch.as_tensor(clip), torch.as_tensor(idx), W,
+                              H, cull_mode=JR.CULL_NONE)
+
+
+SW, SH = 2, 1
+
+
+@pytest.mark.parametrize("max_entries", [TB.MAX_ENTRIES_PER_TILE, 50])
+def test_split_walk_merges_exactly(max_entries):
+    """The kernels' plan: the walk cut into slices (walk_items), each
+    slice evaluated on its own (plain_keys) and merged with amax, equals
+    the unsliced walk exactly — depth and winning packet — including the
+    first-in-walk-order tie-break and the per-range entry clamp."""
+    setup = _split_case()
+    tx, ty = W // TB.TILE_W, H // TB.TILE_H
+    pk, st, hr, hs, _ = TB.bin_triangles(setup, W, H, span_w=SW, span_h=SH)
+    ns, nh = pk.shape[0], hr.shape[0]
+    args = (st, hs, tx, ty, SW, SH, ns, nh)
+    whole, n_whole = TB.walk_items(*args, slice_len=1 << 20,
+                                   max_entries=max_entries)
+    sliced, n_sliced = TB.walk_items(*args, slice_len=16,
+                                     max_entries=max_entries)
+    n_w, n_s = int(n_whole[0]), int(n_sliced[0])
+    assert n_s <= sliced.shape[0] and n_w <= whole.shape[0]
+    assert (sliced[n_s:] == 0).all()
+    _, seg_count = TB.scan_ranges(st, hs, tx, ty, SW, SH)
+    # one exact bin longer than several slices; window and huge ranges
+    assert int(seg_count[0].max()) > 3 * 16
+    assert int(seg_count[1:-1].sum()) > 0 and int(seg_count[-1].sum()) > 0
+    # the slices tile each clamped range in order, none longer than 16
+    s = sliced[:n_s].long()
+    assert int(s[:, 3].max()) <= 16 and int(s[:, 3].min()) > 0
+    for t, g, start, count in whole[:n_w].long().tolist():
+        part = s[(s[:, 0] == t) & (s[:, 1] == g)]
+        assert part[:, 2].tolist() == list(range(start, start + count, 16))
+        assert int(part[:, 3].sum()) == count
+        assert count == min(int(seg_count[g, t]), max_entries)
+    assert n_s > n_w
+    span = (tx, ty, SW, SH)
+    ref = TB.plain_keys(whole, n_whole, pk, hr, *span)
+    merged = torch.zeros_like(ref)
+    for i in range(n_s):
+        merged = torch.maximum(merged, TB.plain_keys(
+            sliced[i:i + 1], torch.ones(1, dtype=torch.int32), pk, hr, *span))
+    assert torch.equal(merged, ref)
+    depth, gid = TB.decode_keys(merged, ns, nh, SW, SH)
+    d_ref, g_ref = TB.plain_winners(st, hs, pk, hr, *span)
+    if max_entries == TB.MAX_ENTRIES_PER_TILE:
+        assert torch.equal(depth.reshape(d_ref.shape), d_ref)
+        assert torch.equal(gid.reshape(g_ref.shape), g_ref)
+        # the 40 tied copies: the first in walk order wins their pixels
+        tri = torch.cat([pk[:, TB.COL_TRI], hr[:, TB.COL_TRI]]) \
+            .contiguous().view(torch.int32)[gid.clamp_min(0)]
+        tied = (tri >= 60) & (tri < 100)
+        assert int(tied.sum()) > 0 and int(tri[tied].unique().numel()) == 1
+    else:
+        # the clamp drops entries of the long bin, so some pixels keep
+        # another winner than the unclamped walk's
+        assert not torch.equal(gid.reshape(g_ref.shape), g_ref)
