@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..math.muglm import look_at_matrix, perspective
+from .hdr import clamped_floor
 from .texture import quad_pack2d
 
 FACE_DIRS = np.array([
@@ -81,11 +82,13 @@ def pack_atlas(slices: torch.Tensor) -> torch.Tensor:
 
 
 def _clip_coords(x, y, S: int):
-    x0 = torch.floor(x).to(torch.int32).clamp(0, S - 1)
-    y0 = torch.floor(y).to(torch.int32).clamp(0, S - 1)
-    fx = (x - x0.to(x.dtype)).clamp(0.0, 1.0)
-    fy = (y - y0.to(y.dtype)).clamp(0.0, 1.0)
-    return x0, y0, fx, fy
+    """Start texel clipped to [0, S-1] + clamped fracs; clamping in float
+    first equals XLA's saturating cast followed by the clip."""
+    x0 = clamped_floor(x, S - 1)
+    y0 = clamped_floor(y, S - 1)
+    fx = (x - x0).clamp(0.0, 1.0)
+    fy = (y - y0).clamp(0.0, 1.0)
+    return x0.to(torch.int32), y0.to(torch.int32), fx, fy
 
 
 def _light_sample_coords(world_pos, vps_np, slice0: int, kind: int,

@@ -127,6 +127,23 @@ def lod_from_derivs(dudx, dvdx, dudy, dvdy, width: int, height: int,
     return torch.log2(rho) + bias
 
 
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def saturating_int32(x):
+    """Float -> int32 as XLA converts (and PTX's cvt): values >= 2^31
+    (and +inf) give INT32_MAX, values < -2^31 (and -inf) INT32_MIN, NaN
+    gives 0.  A plain torch cast on the CPU maps all of them to INT32_MIN.
+    Not a clamp into a texture's range: `remainder` needs the saturated
+    integer itself."""
+    big = x >= 2.0 ** 31
+    small = x < -2.0 ** 31
+    inside = ~(big | small | torch.isnan(x))
+    xi = torch.where(inside, x, torch.zeros_like(x)).to(torch.int32)
+    xi = torch.where(big, INT32_MAX, xi)
+    return torch.where(small, INT32_MIN, xi)
+
+
 def _gutter_level_coords(S: int, u, v, level):
     """Start texel (row, col) + bilinear fracs for one gutter-strip level
     (repeat addressing: the port's strips are all baked with repeat)."""
@@ -141,8 +158,8 @@ def _gutter_level_coords(S: int, u, v, level):
     y = v * lsf - 0.5
     x0f = torch.floor(x)
     y0f = torch.floor(y)
-    x0 = torch.remainder(x0f.to(torch.int32), ls)
-    y0 = torch.remainder(y0f.to(torch.int32), ls)
+    x0 = torch.remainder(saturating_int32(x0f), ls)
+    y0 = torch.remainder(saturating_int32(y0f), ls)
     return row0 + y0, x0, x - x0f, y - y0f
 
 
@@ -154,7 +171,7 @@ def sample_packed_lod(packed: torch.Tensor, tex_id, u, v, lod,
     S = packed.shape[2]
     L = num_mip_levels(S, S)
     lod = lod.clamp(0.0, L - 1.0)
-    l0 = torch.floor(lod).to(torch.int32)
+    l0 = saturating_int32(torch.floor(lod))
     frac = (lod - l0.to(lod.dtype))[..., None]
     yy, xx, fx, fy = _gutter_level_coords(S, u, v, l0)
     row = packed[tex_id.long(), yy.long(), xx.long()].float()

@@ -15,6 +15,7 @@ from granite_tpu.renderer import environment as JE
 from granite_tpu_torch import convert
 from granite_tpu_torch.assets import texture_array as TTA
 from granite_tpu_torch.ops import fastmath as TFM
+from granite_tpu_torch.ops import light_shadows as TL
 from granite_tpu_torch.ops import texture as TT
 from granite_tpu_torch.ops.tile_sampler import sample_lod
 from granite_tpu_torch.renderer import environment as TE
@@ -77,6 +78,83 @@ def test_b3_plain_matches_sample_packed_lod(dtype, channels, size):
                      torch.as_tensor(lod), channels).numpy()
     assert got.shape == HW + (channels,)
     assert np.allclose(got, ref, rtol=0, atol=1e-6)
+
+
+# Coordinates past the int32 range once scaled to texels, and non-finite
+# ones: XLA saturates the float -> int32 cast (NaN -> 0) where a plain
+# torch cast on the CPU gives INT32_MIN, so the texel picked differs.
+EDGE_UV = np.array([3e9, -3e9, 5e9, 7e8, 1e8, np.inf, -np.inf, np.nan, 0.3],
+                   np.float32)
+
+
+@pytest.mark.parametrize("dtype,channels,size", [
+    ("float16", 12, 32),     # material bundles
+    ("float32", 4, 64),      # environment strip
+])
+def test_b3_plain_saturates_like_xla(dtype, channels, size):
+    """B3's plain version against the reference's sample_packed_lod for
+    every (u, v) pair of EDGE_UV at lods 0, 2 and the last level."""
+    strips = np.stack([TT.build_packed_lod_strip_np(
+        _img(k + 11, size, channels), dtype=dtype) for k in range(2)])
+    u, v = (a.astype(np.float32) for a in np.meshgrid(EDGE_UV, EDGE_UV))
+    b = (np.arange(u.size) % 2).reshape(u.shape).astype(np.int32)
+    for lod_value in (0.0, 2.0, TT.num_mip_levels(size, size) - 1.0):
+        lod = np.full(u.shape, lod_value, np.float32)
+        ref = np.asarray(JT.sample_packed_lod(
+            jnp.asarray(strips), jnp.asarray(b), jnp.asarray(u),
+            jnp.asarray(v), jnp.asarray(lod), channels))
+        args = (torch.as_tensor(strips), torch.as_tensor(b),
+                torch.as_tensor(u), torch.as_tensor(v), torch.as_tensor(lod),
+                channels)
+        raw = TT.sample_packed_lod(*args).numpy()
+        assert np.allclose(raw, ref, rtol=0, atol=1e-6, equal_nan=True)
+        got = sample_lod(*args).numpy()
+        want = np.nan_to_num(ref, nan=0.0, posinf=1.0, neginf=0.0)
+        assert np.allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_saturating_int32_matches_xla():
+    x = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.0 ** 31,
+                  -2.0 ** 31, 2147483520.0, -7.0, 0.0], np.float32)
+    ref = np.asarray(jnp.asarray(x).astype(jnp.int32))
+    got = TT.saturating_int32(torch.as_tensor(x)).numpy()
+    assert got.dtype == np.int32 and np.array_equal(got, ref)
+
+
+def test_clip_coords_saturates_like_xla():
+    """light_shadows._clip_coords against the reference's expression
+    (granite_tpu/ops/light_shadows.py, the slice's x0/y0/fx/fy), exact."""
+    S = 16
+    x, y = (a.astype(np.float32) for a in np.meshgrid(
+        EDGE_UV * S - 0.5, np.append(EDGE_UV, [-4.0, 15.7]) * S - 0.5))
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    jx0 = jnp.clip(jnp.floor(jx).astype(jnp.int32), 0, S - 1)
+    jy0 = jnp.clip(jnp.floor(jy).astype(jnp.int32), 0, S - 1)
+    jfx = jnp.clip(jx - jx0.astype(jx.dtype), 0.0, 1.0)
+    jfy = jnp.clip(jy - jy0.astype(jy.dtype), 0.0, 1.0)
+    x0, y0, fx, fy = TL._clip_coords(torch.as_tensor(x), torch.as_tensor(y),
+                                     S)
+    assert x0.dtype == y0.dtype == torch.int32
+    assert np.array_equal(x0.numpy(), np.asarray(jx0))
+    assert np.array_equal(y0.numpy(), np.asarray(jy0))
+    assert np.array_equal(fx.numpy(), np.asarray(jfx), equal_nan=True)
+    assert np.array_equal(fy.numpy(), np.asarray(jfy), equal_nan=True)
+
+
+def test_b3_strided_views_match_contiguous():
+    """The main path hands B3 u and v as views of the uv planes; the
+    wrapper's result equals its result on contiguous copies."""
+    strips = torch.as_tensor(TT.build_packed_lod_strip_np(_img(5, 16, 12)))[
+        None]
+    u, v, lod, b = _coords(6, 1)
+    planes = torch.as_tensor(np.stack([u, v]))[:, :40, :72]
+    uv = planes.movedim(0, -1)
+    lod_t, b_t = torch.as_tensor(lod)[:40, :72], torch.as_tensor(b)[:40, :72]
+    assert not uv[..., 0].is_contiguous()
+    strided = sample_lod(strips, b_t, uv[..., 0], uv[..., 1], lod_t, 12)
+    dense = sample_lod(strips, b_t.contiguous(), uv[..., 0].contiguous(),
+                       uv[..., 1].contiguous(), lod_t.contiguous(), 12)
+    assert torch.equal(strided, dense)
 
 
 def test_b3_skips_uncovered_and_contains_nans():
