@@ -14,7 +14,11 @@
         shadow atlas: depth and triangle ids exact.
      B2 G-buffer raster + resolve: coverage and depth exact, planes at
         tests/test_raster_fused.py's tolerances.
-     B3 material (f16, C=12) and environment (f32, C=4) fetch: 1e-6.
+     B3 material (f16, C=12) and environment (f32, C=4) fetch, with the
+        main path's inputs (strided uv views, no copies): 1e-6; again at
+        1440x810 and on edge-case batches at 1920x1080 and 37x53 (bundle
+        -1 and >= N, u, v past the int32 range or non-finite, lod NaN,
+        +-inf or huge, fully magnified and fully minified regions).
      B3T VSM moment fetch, 2048^2 moments of the sun map at the bench
         view's half-res coordinates (960x540): 1e-6; its yardstick is
         F.grid_sample on the same coordinates (library_ms).
@@ -32,7 +36,9 @@
    (inputs once, outputs once) at 3.35 TB/s and its FP32 operations at
    67 TFLOP/s (the H100 SXM data sheet's peaks); for B1/B2 the inputs
    are the lanes the walk needs of each binned packet row and the lanes
-   the resolve reads of each winning triangle (walk_bound).
+   the resolve reads of each winning triangle (walk_bound); for B3 each
+   distinct strip row the live pixels read, for B3T each distinct moment
+   texel of the live pixels' 2x2 footprints.
 3. Main paths, each with the launch counts set to 0 just before it and
    read just after: SceneViewerApplication(device="cuda") on the bench
    scene at 1920x1080, 2 warm-up frames then 12 frames through
@@ -107,6 +113,10 @@ WALK_ROW_BYTES = 128
 # payload lanes 21-75, and 76-84 too with the previous-position planes.
 B1_WINNER_LANES = 1
 B2_WINNER_LANES, B2_PREV_WINNER_LANES = 55, 64
+# FP32 operations of B3 as the plain version writes them: 12 a channel
+# (four lerps of 2 mul + 1 add) and 15 a pixel (the weights, the scaled
+# and floored coordinates, the lod's clamp, floor and frac).
+B3_OPS, B3_PIXEL_OPS = 12, 15
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 12, 0.01
 TRACED_FRAMES = 4
@@ -436,6 +446,127 @@ def b1_atlas_args(app):
     return (st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H, 2, 8)
 
 
+def b3_rows(strips, bnd, u, v, lod) -> tuple[int, int]:
+    """(live pixels, distinct strip rows they read) of B3 on these
+    inputs: each live pixel reads one 5C-channel row."""
+    import torch
+    from granite_tpu_torch.ops import texture as TT
+    N, rows, S, _ = strips.shape
+    L = TT.num_mip_levels(S, S)
+    live = ((bnd >= 0) & (bnd < N) & torch.isfinite(u) & torch.isfinite(v)
+            & ~torch.isnan(lod))
+    level = TT.saturating_int32(torch.floor(lod.clamp(0.0, L - 1.0)))
+    yy, xx, _fx, _fy = TT._gutter_level_coords(S, u, v, level)
+    flat = (bnd.long() * rows + yy.long()) * S + xx.long()
+    return int(live.sum()), int(flat[live].unique().numel())
+
+
+def b3_case(name: str, args, reps: int = 20) -> dict:
+    """Kernel B3 against its plain version on `args` (strips, bundle, u, v,
+    lod, channels) at 1e-6; timed (device time, `reps` calls) unless reps
+    is 0.  Bound: each coordinate element once, each distinct strip row
+    the live pixels read once, the output; B3_OPS FP32 ops a live pixel
+    and channel plus B3_PIXEL_OPS a live pixel."""
+    import torch
+    from granite_tpu_torch.ops.tile_sampler import sample_lod, sample_lod_plain
+    strips, bnd, u, v, lod, c = args
+    o_k = sample_lod(*args)
+    o_p = sample_lod_plain(*args)
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    check(err <= 1e-6, f"B3 {name} differs from plain by {err}")
+    live, rows = b3_rows(strips, bnd, u, v, lod)
+    b = bound(nbytes(bnd, u, v, lod, o_k)
+              + rows * strips.shape[-1] * strips.element_size(),
+              live * (B3_OPS * c + B3_PIXEL_OPS))
+    r = dict(case=name, max_abs_err=err, rows=rows, live=live, **b)
+    if reps:
+        r["ms"] = device_ms(lambda: sample_lod(*args), reps)
+        r["plain_ms"] = host_ms(lambda: sample_lod_plain(*args), 3)
+    times = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+             if reps else "")
+    log(f"B3 {name} ({tuple(u.shape)}, u strides {tuple(u.stride())}): max "
+        f"abs err {err:.3g} (bit-equal {bool(torch.equal(o_k, o_p))}); "
+        f"{times}bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bytes']}"
+        f" B, {rows} distinct rows of {live} live pixels)")
+    return r
+
+
+def b3_main_cases(app, params, planes, cov, surf, label: str) -> list:
+    """Both B3 fetches with the main path's inputs: material_shade_tail's
+    strided uv views, its torch.where bundle and material_lod's lod; the
+    environment fetch of compute_env_products."""
+    import torch
+    from granite_tpu_torch.ops import raster_fused as RF
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    from granite_tpu_torch.renderer.environment import env_fetch_coords
+
+    def ch(base, n):
+        return planes[base:base + n].movedim(0, -1)
+
+    packed, env = app.packed, app.environment
+    lod = SR.material_lod(packed, ch(RF.PLANE_DUVDX, 2),
+                          ch(RF.PLANE_DUVDY, 2), 0.0)
+    bundle_id = planes[RF.PLANE_BUNDLE].to(torch.int32)
+    bnd = torch.where(cov, bundle_id, torch.full_like(bundle_id, -1))
+    uv = ch(RF.PLANE_UV, 2)
+    refl, elod = SR.reflection(surf, params["camera_pos"], env.num_levels)
+    eb, eu, ev = env_fetch_coords(env.strips, refl, surf["covered"])
+    return [b3_case(f"material f16 C=12 {label}",
+                    (packed.bundles, bnd, uv[..., 0], uv[..., 1], lod,
+                     SR.MATERIAL_CHANNELS)),
+            b3_case(f"environment f32 C=4 {label}",
+                    (env.strips, eb, eu, ev, elod, 4))]
+
+
+def b3_edge_args(strips, channels: int, height: int, width: int, seed: int):
+    """B3 inputs at (height, width) that reach every edge: bundle -1 and
+    >= N; u and v past the int32 range once scaled, +-inf and NaN (10%);
+    lod NaN, +-inf, +-1e30 (5%); the top third fully magnified (lod < 0),
+    the middle third fully minified (lod past the last level).  u and v
+    are strided views of one (H, W, 2) tensor."""
+    import torch
+    from granite_tpu_torch.ops.texture import num_mip_levels
+    dev = strips.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    levels = num_mip_levels(strips.shape[2], strips.shape[2])
+
+    def uniform(lo, hi, shape):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    def sprinkle(x, values, share):
+        values = torch.tensor(values, dtype=torch.float32, device=dev)
+        pick = torch.randint(0, len(values), x.shape, generator=g,
+                             device=dev)
+        hit = torch.rand(x.shape, generator=g, device=dev) < share
+        return torch.where(hit, values[pick], x)
+
+    inf, nan = float("inf"), float("nan")
+    uv = sprinkle(uniform(-2.0, 3.0, (height, width, 2)),
+                  [3e9, -3e9, 5e9, 7e8, 1e8, inf, -inf, nan], 0.1)
+    third = height // 3
+    lod = torch.cat([uniform(-12.0, -1.0, (third, width)),
+                     uniform(levels, levels + 8.0, (third, width)),
+                     uniform(-1.0, levels + 1.0,
+                             (height - 2 * third, width))])
+    lod = sprinkle(lod, [nan, inf, -inf, 1e30, -1e30], 0.05)
+    bnd = torch.randint(-2, strips.shape[0] + 2, (height, width),
+                        generator=g, device=dev, dtype=torch.int32)
+    return (strips, bnd, uv[..., 0], uv[..., 1], lod, channels)
+
+
+def b3t_texels(img, u, v, live) -> int:
+    """Distinct moment texels of B3T's 2x2 footprints at the live pixels."""
+    import torch
+    from granite_tpu_torch.ops.hdr import clamped_floor
+    H, W = img.shape[:2]
+    x0 = clamped_floor(u * W - 0.5, W - 1).long()
+    y0 = clamped_floor(v * H - 0.5, H - 1).long()
+    x1, y1 = (x0 + 1).clamp_max(W - 1), (y0 + 1).clamp_max(H - 1)
+    flat = torch.stack([y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1])
+    return int(flat[:, live].unique().numel())
+
+
 def kernel_phases(results: dict) -> None:
     """Each kernel against its plain version at the bench frame's shapes,
     then B1 on an atlas slice, B4 with AO, then B2 and B4 at the FSR2
@@ -446,10 +577,9 @@ def kernel_phases(results: dict) -> None:
     from granite_tpu_torch.ops.shadow import light_uvz, vsm_moments
     from granite_tpu_torch.ops.ssao import ssao, upsample_ao
     from granite_tpu_torch.ops.tile_sampler import (
-        sample_bilinear, sample_bilinear_plain, sample_lod, sample_lod_plain,
+        sample_bilinear, sample_bilinear_plain,
     )
     from granite_tpu_torch.renderer import scene_renderer as SR
-    from granite_tpu_torch.renderer.environment import env_fetch_coords
 
     app = make_app(BENCH_CONFIG, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
@@ -464,45 +594,15 @@ def kernel_phases(results: dict) -> None:
     # --- B2: G-buffer raster + resolve ------------------------------------
     planes, cov, results["B2"] = b2_case(app, params, WIDTH, HEIGHT)
 
-    # --- B3: material + environment fetch ---------------------------------
-    def ch(base, n):
-        return planes[base:base + n].movedim(0, -1)
-
-    lod = SR.material_lod(packed, ch(RF.PLANE_DUVDX, 2),
-                          ch(RF.PLANE_DUVDY, 2), 0.0)
-    bnd = torch.where(cov,
-                      planes[RF.PLANE_BUNDLE].to(torch.int32), -1)
-    uv = ch(RF.PLANE_UV, 2)
-    mat_args = (packed.bundles, bnd, uv[..., 0].contiguous(),
-                uv[..., 1].contiguous(), lod, SR.MATERIAL_CHANNELS)
+    # --- B3: material + environment fetch, as the main path calls it ----
     surf = surface(app, planes, cov)
-    env = app.environment
-    refl, elod = SR.reflection(surf, params["camera_pos"], env.num_levels)
-    eb, eu, ev = env_fetch_coords(env.strips, refl, surf["covered"])
-    env_args = (env.strips, eb, eu, ev, elod.contiguous(), 4)
-    errs, ms, pms, n_bytes = [], 0.0, 0.0, 0
-    for name, a in (("material f16 C=12", mat_args),
-                    ("environment f32 C=4", env_args)):
-        o_k = sample_lod(*a)
-        o_p = sample_lod_plain(*a)
-        torch.cuda.synchronize()
-        e = float((o_k - o_p).abs().max())
-        check(e <= 1e-6, f"B3 {name} differs from plain by {e}")
-        k_ms = device_ms(lambda a=a: sample_lod(*a), 20)
-        p_ms = host_ms(lambda a=a: sample_lod_plain(*a), 3)
-        # bytes: the per-pixel coordinates in and the texels out; the
-        # strips are left out (neighbouring pixels share their texels),
-        # so this is a lower bound.
-        case_bytes = nbytes(*a[1:5], o_k)
-        log(f"B3 {name} {WIDTH}x{HEIGHT}: max abs err {e:.3g}; kernel "
-            f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-            f"{bound(case_bytes)['bound_ms']:.4f} ms ({case_bytes} B)")
-        errs.append(e)
-        ms += k_ms
-        pms += p_ms
-        n_bytes += case_bytes
-    results["B3"] = dict(case="material + environment", max_abs_err=max(errs),
-                         ms=ms, plain_ms=pms, **bound(n_bytes))
+    b3 = b3_main_cases(app, params, planes, cov, surf, f"{WIDTH}x{HEIGHT}")
+    edge = [b3_case(f"{name} edge cases {h}x{w}",
+                    b3_edge_args(strips, c, h, w, seed), reps=0)
+            for seed, (h, w) in enumerate(((HEIGHT, WIDTH), (37, 53)))
+            for name, strips, c in (
+                ("material f16 C=12", packed.bundles, SR.MATERIAL_CHANNELS),
+                ("environment f32 C=4", app.environment.strips, 4))]
 
     # --- B3T: VSM moment fetch (the forward path's sun term) -------------
     moments = vsm_moments(params["static_shadow_depth"])
@@ -532,14 +632,18 @@ def kernel_phases(results: dict) -> None:
     check(lib_err <= 1e-5, f"F.grid_sample differs from B3T by {lib_err}: "
           "not the same function, so no yardstick")
     lms = device_ms(library, 20)
-    b = bound(nbytes(*vsm_args[1:], o_k))
+    # bytes: the coordinates, mask and output, and each distinct moment
+    # texel of the live pixels' 2x2 footprints once (8 B).
+    texels = b3t_texels(moments, u, v, live)
+    b = bound(nbytes(*vsm_args[1:], o_k) + texels * 8)
     log(f"B3T VSM moments {tuple(moments.shape)} at {tuple(u.shape)} "
         f"({int(live.sum())} live): max abs err {err:.3g}; kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, grid_sample {lms:.3f} ms (max "
+        f"{ms:.4f} ms, plain {pms:.3f} ms, grid_sample {lms:.4f} ms (max "
         f"abs diff on live pixels {lib_err:.3g}), bound "
-        f"{b['bound_ms']:.4f} ms ({b['bytes']} B, moments left out)")
+        f"{b['bound_ms']:.4f} ms ({b['bytes']} B, {texels} distinct "
+        "moment texels)")
     results["B3T"] = dict(case="960x540 of 2048^2x2", max_abs_err=err, ms=ms,
-                          plain_ms=pms, library_ms=lms, **b)
+                          plain_ms=pms, library_ms=lms, texels=texels, **b)
 
     # --- B4: deferred lighting, then with the SSAO plane -----------------
     results["B4"] = b4_case(app, params, surf, "no AO")
@@ -554,14 +658,21 @@ def kernel_phases(results: dict) -> None:
     del app, params, planes, cov, surf, ao
     torch.cuda.empty_cache()
 
-    # --- B2 and B4 at the FSR2 render size --------------------------------
+    # --- B2, B3 and B4 at the FSR2 render size ---------------------------
     app = make_app(FSR2_CONFIG, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
     rw, rh = app._rw, app._rh
     params = app.build_frame_params(FRAME_TIME)
     planes, cov, b2_fsr2 = b2_case(app, params, rw, rh, prev=True)
-    b4_fsr2 = b4_case(app, params, surface(app, planes, cov),
-                      "FSR2 render size")
+    surf = surface(app, planes, cov)
+    b3_fsr2 = b3_main_cases(app, params, planes, cov, surf, f"{rw}x{rh}")
+    b4_fsr2 = b4_case(app, params, surf, "FSR2 render size")
+    results["B3"] = dict(
+        case=f"material + environment {WIDTH}x{HEIGHT}",
+        ms=sum(c["ms"] for c in b3), plain_ms=sum(c["plain_ms"] for c in b3),
+        **bound(sum(c["bytes"] for c in b3), sum(c["ops"] for c in b3)),
+        max_abs_err=max(c["max_abs_err"] for c in b3 + b3_fsr2 + edge),
+        cases=b3 + b3_fsr2 + edge)
     for k, extra in (("B1", (atlas,)), ("B2", (b2_fsr2,)),
                      ("B4", (ao_case, b4_fsr2))):
         results[k]["max_abs_err"] = max(

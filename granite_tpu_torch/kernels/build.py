@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
     # B1: items, n_items, packets, huge_rows, scratch, depth, tri,
@@ -48,9 +49,10 @@ SIGNATURES = {
     "granite_raster_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P),
     # B3: strip, half, n_bundles, rows, size, channels, bundle, u, v, lod,
-    #     out, n_pixels, levels, stream
-    "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                           _I, _P),
+    #     width, (row, column) strides of bundle, u, v, lod, out, n_pixels,
+    #     levels, stream
+    "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _P, _L, _I, _P),
     # B3T: img, h, w, channels, u, v, live, out, n_pixels, stream
     "granite_sample_bilinear": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     # B4: planes, n_planes, ph, pw, lights, n_light_cap, tile_masks,

@@ -4,10 +4,13 @@ granite_tpu/ops/tile_sampler.py _sample_kernel).
 The reference's tile sampler planned texel rects per screen tile, DMA'd
 them into VMEM and fetched texels with one-hot MXU matmuls: all TPU
 workarounds for its slow per-pixel gather.  On Hopper the job is a
-plain gather: one thread per pixel reads ONE 5C-channel row of the
-(N, HS-1, S, 5C) LOD strip (ops/texture.build_packed_lod_strip_np) at
-floor(lod) and reconstructs approximate trilinear (bilinear quad lerped
-to the baked parent tap), with ops/texture.sample_packed_lod semantics.
+gather: each pixel reads ONE 5C-channel row of the (N, HS-1, S, 5C) LOD
+strip (ops/texture.build_packed_lod_strip_np) at floor(lod) and
+reconstructs approximate trilinear (bilinear quad lerped to the baked
+parent tap), with ops/texture.sample_packed_lod semantics.  A warp
+copies its 32 pixels' rows into shared memory as contiguous chunks
+(cp.async, double-buffered in a persistent loop) and writes its outputs
+as contiguous float4s (csrc/tile_sampler.cu says why).
 Pixels with bundle < 0 (uncovered) return 0, and the output is
 nan_to_num'd (nan -> 0, +inf -> 1, -inf -> 0) like the reference.
 
@@ -47,35 +50,74 @@ def sample_lod_plain(strips, bundle, u, v, lod, channels: int):
     return _finite_or_zero(out)
 
 
+def row_strides(t, name: str = "tensor"):
+    """(row, column) strides in elements that read `t` as rows of its last
+    dimension: element i lies at (i // W) * row + (i % W) * column, W =
+    t.shape[-1].  Contiguous tensors and views such as uv[..., 0] of an
+    (H, W, 2) plane or a crop of a padded plane have this form; raises
+    for a layout whose leading dimensions do not merge into one."""
+    if t.dim() == 0:
+        return 0, 0
+    col = t.stride(-1)
+    row = span = None
+    for size, stride in zip(reversed(t.shape[:-1]),
+                            reversed(t.stride()[:-1])):
+        if size == 1:
+            continue
+        if row is None:
+            row = stride
+        elif stride != span:
+            raise ValueError(f"{name}: strides {t.stride()} for shape "
+                             f"{tuple(t.shape)} do not read as rows")
+        span = stride * size
+    return (0 if row is None else row), col
+
+
 def sample_lod(strips, bundle, u, v, lod, channels: int):
-    """Kernel B3: strips (N, HS-1, S, 5C) f16|f32; bundle (...) int32
-    (-1 = skip); u, v, lod (...) f32 -> (..., channels) f32."""
+    """Kernel B3: strips (N, HS-1, S, 5C), f16 with C = 12 or f32 with
+    C = 4; bundle (...) int32 (-1 = skip); u, v, lod (...) f32 ->
+    (..., channels) f32.  bundle, u, v and lod may be strided views (see
+    row_strides): the kernel reads them in place."""
     dev = strips.device
-    if dev.type == "cpu":
+    inputs = {"bundle": bundle, "u": u, "v": v, "lod": lod}
+    if dev.type == "cpu" and all(t.device.type == "cpu"
+                                 for t in inputs.values()):
         return sample_lod_plain(strips, bundle, u, v, lod, channels)
     if dev.type != "cuda":
-        raise ValueError(f"sample_lod: unsupported device {dev}")
-    if strips.dtype not in (torch.float16, torch.float32):
-        raise ValueError(f"sample_lod: strips dtype {strips.dtype}")
+        raise ValueError(f"sample_lod: strips on {dev} with inputs on "
+                         f"{[str(t.device) for t in inputs.values()]}")
+    variant = (strips.dtype, channels)
+    if variant not in ((torch.float16, 12), (torch.float32, 4)):
+        raise ValueError(f"sample_lod: {strips.dtype} strips with "
+                         f"{channels} channels (the kernel instantiates f16 "
+                         "C=12 for materials and f32 C=4 for the "
+                         "environment)")
     K.check(strips, "strips", strips.dtype, dev, 4)
     N, rows, S, c5 = strips.shape
-    if c5 != 5 * channels or channels not in (4, 12):
+    if c5 != 5 * channels:
         raise ValueError(f"sample_lod: {c5} strip lanes for {channels} "
-                         "channels (kernel instantiates C = 4 and 12)")
+                         "channels")
+    if N * rows * S >= 2 ** 31 or strips.data_ptr() % 16:
+        raise ValueError("sample_lod: strips need < 2^31 rows and a "
+                         "16-byte aligned start")
+    if u.numel() >= 2 ** 31:
+        raise ValueError(f"sample_lod: {u.numel()} pixels, at most 2^31 - 1")
     shape = u.shape
-    bundle = bundle.to(torch.int32).contiguous()
-    u = u.to(torch.float32).contiguous()
-    v = v.to(torch.float32).contiguous()
-    lod = lod.to(torch.float32).contiguous()
-    for name, t in (("bundle", bundle), ("u", u), ("v", v), ("lod", lod)):
-        if t.shape != shape or t.device != dev:
-            raise ValueError(f"sample_lod: {name} {tuple(t.shape)} on "
-                             f"{t.device}, expected {tuple(shape)}")
+    strides = []
+    for name, t in inputs.items():
+        dtype = torch.int32 if name == "bundle" else torch.float32
+        if t.shape != shape or t.device != dev or t.dtype != dtype:
+            raise ValueError(f"sample_lod: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, expected "
+                             f"{tuple(shape)} {dtype} on {dev}")
+        strides.append(row_strides(t, name))
     out = torch.empty(shape + (channels,), dtype=torch.float32, device=dev)
     K.launch("B3", "granite_sample_lod", K.ptr(strips),
              int(strips.dtype == torch.float16), N, rows, S, channels,
-             K.ptr(bundle), K.ptr(u), K.ptr(v), K.ptr(lod), K.ptr(out),
-             u.numel(), num_mip_levels(S, S))
+             K.ptr(bundle), K.ptr(u), K.ptr(v), K.ptr(lod),
+             max(shape[-1], 1) if shape else 1,
+             *[s for pair in strides for s in pair],
+             K.ptr(out), u.numel(), num_mip_levels(S, S))
     return out
 
 

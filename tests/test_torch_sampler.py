@@ -17,7 +17,7 @@ from granite_tpu_torch.assets import texture_array as TTA
 from granite_tpu_torch.ops import fastmath as TFM
 from granite_tpu_torch.ops import light_shadows as TL
 from granite_tpu_torch.ops import texture as TT
-from granite_tpu_torch.ops.tile_sampler import sample_lod
+from granite_tpu_torch.ops.tile_sampler import row_strides, sample_lod
 from granite_tpu_torch.renderer import environment as TE
 
 HW = (48, 80)
@@ -155,6 +155,46 @@ def test_b3_strided_views_match_contiguous():
     dense = sample_lod(strips, b_t.contiguous(), uv[..., 0].contiguous(),
                        uv[..., 1].contiguous(), lod_t.contiguous(), 12)
     assert torch.equal(strided, dense)
+
+
+@pytest.mark.parametrize("make", [
+    lambda t: t,                                   # contiguous
+    lambda t: t[:, :40, :72].movedim(0, -1)[..., 1],   # uv[..., 1] of a crop
+    lambda t: t.movedim(0, -1)[..., 0],            # stride-2 columns
+    lambda t: t[0, ::2, 3:9],                      # every other row
+    lambda t: t[:, 5:6, :].movedim(0, -1)[..., 0],     # one row
+    lambda t: t[0, 7, 11],                         # 0-d
+])
+def test_row_strides_read_the_view(make):
+    """The kernel reads input i at (i // W) * row + (i % W) * col of the
+    view's storage: row_strides gives those strides for the main path's
+    views."""
+    base = torch.arange(2 * 48 * 80, dtype=torch.float32).reshape(2, 48, 80)
+    t = make(base)
+    row, col = row_strides(t)
+    W = t.shape[-1] if t.dim() else 1
+    i = torch.arange(t.numel())
+    flat = base.reshape(-1)[t.storage_offset() + (i // W) * row
+                            + (i % W) * col]
+    assert torch.equal(flat, t.reshape(-1))
+
+
+def test_row_strides_rejects_unmergeable_layouts():
+    t = torch.zeros(4, 6, 8).permute(1, 0, 2)      # rows not in order
+    with pytest.raises(ValueError):
+        row_strides(t)
+
+
+def test_b3_wrapper_never_runs_plain_on_other_devices():
+    """Only all-CPU inputs take the plain version; strips or coordinates
+    on another device go to the kernel's checks, which raise here."""
+    strips = torch.as_tensor(TT.build_packed_lod_strip_np(_img(1, 16, 4),
+                                                          dtype="float32"))[None]
+    u, v, lod, b = map(torch.as_tensor, _coords(2, 1))
+    with pytest.raises(ValueError):
+        sample_lod(strips.to("meta"), b, u, v, lod, 4)
+    with pytest.raises(ValueError):
+        sample_lod(strips, b, u.to("meta"), v, lod, 4)
 
 
 def test_b3_skips_uncovered_and_contains_nans():
