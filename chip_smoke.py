@@ -36,9 +36,11 @@
    (inputs once, outputs once) at 3.35 TB/s and its FP32 operations at
    67 TFLOP/s (the H100 SXM data sheet's peaks); for B1/B2 the inputs
    are the lanes the walk needs of each binned packet row and the lanes
-   the resolve reads of each winning triangle (walk_bound); for B3 each
-   distinct strip row the live pixels read, for B3T each distinct moment
-   texel of the live pixels' 2x2 footprints.
+   the resolve reads of each winning triangle (walk_bound); for B3 the
+   bundle of every pixel, u, v and lod of the pixels with a bundle and
+   each distinct strip row the live pixels read; for B3T the mask of
+   every pixel, u and v of the live pixels and each distinct moment
+   texel of their 2x2 footprints.
 3. Main paths, each with the launch counts set to 0 just before it and
    read just after: SceneViewerApplication(device="cuda") on the bench
    scene at 1920x1080, 2 warm-up frames then 12 frames through
@@ -446,27 +448,29 @@ def b1_atlas_args(app):
     return (st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H, 2, 8)
 
 
-def b3_rows(strips, bnd, u, v, lod) -> tuple[int, int]:
-    """(live pixels, distinct strip rows they read) of B3 on these
-    inputs: each live pixel reads one 5C-channel row."""
+def b3_rows(strips, bnd, u, v, lod) -> tuple[int, int, int]:
+    """(pixels with a bundle in [0, N), live pixels, distinct strip rows
+    they read) of B3 on these inputs: each live pixel (a bundle, finite u
+    and v, a lod that is not NaN) reads one 5C-channel row."""
     import torch
     from granite_tpu_torch.ops import texture as TT
     N, rows, S, _ = strips.shape
     L = TT.num_mip_levels(S, S)
-    live = ((bnd >= 0) & (bnd < N) & torch.isfinite(u) & torch.isfinite(v)
-            & ~torch.isnan(lod))
+    read = (bnd >= 0) & (bnd < N)
+    live = read & torch.isfinite(u) & torch.isfinite(v) & ~torch.isnan(lod)
     level = TT.saturating_int32(torch.floor(lod.clamp(0.0, L - 1.0)))
     yy, xx, _fx, _fy = TT._gutter_level_coords(S, u, v, level)
     flat = (bnd.long() * rows + yy.long()) * S + xx.long()
-    return int(live.sum()), int(flat[live].unique().numel())
+    return int(read.sum()), int(live.sum()), int(flat[live].unique().numel())
 
 
 def b3_case(name: str, args, reps: int = 20) -> dict:
     """Kernel B3 against its plain version on `args` (strips, bundle, u, v,
     lod, channels) at 1e-6; timed (device time, `reps` calls) unless reps
-    is 0.  Bound: each coordinate element once, each distinct strip row
-    the live pixels read once, the output; B3_OPS FP32 ops a live pixel
-    and channel plus B3_PIXEL_OPS a live pixel."""
+    is 0.  Bound: the bundle of every pixel; u, v and lod only of the
+    pixels with a bundle (the others give 0 whatever they hold); each
+    distinct strip row the live pixels read once; the output.  B3_OPS
+    FP32 ops a live pixel and channel plus B3_PIXEL_OPS a live pixel."""
     import torch
     from granite_tpu_torch.ops.tile_sampler import sample_lod, sample_lod_plain
     strips, bnd, u, v, lod, c = args
@@ -475,11 +479,14 @@ def b3_case(name: str, args, reps: int = 20) -> dict:
     torch.cuda.synchronize()
     err = float((o_k - o_p).abs().max())
     check(err <= 1e-6, f"B3 {name} differs from plain by {err}")
-    live, rows = b3_rows(strips, bnd, u, v, lod)
-    b = bound(nbytes(bnd, u, v, lod, o_k)
+    read, live, rows = b3_rows(strips, bnd, u, v, lod)
+    b = bound(nbytes(bnd, o_k)
+              + read * (u.element_size() + v.element_size()
+                        + lod.element_size())
               + rows * strips.shape[-1] * strips.element_size(),
               live * (B3_OPS * c + B3_PIXEL_OPS))
-    r = dict(case=name, max_abs_err=err, rows=rows, live=live, **b)
+    r = dict(case=name, max_abs_err=err, rows=rows, live=live, read=read,
+             **b)
     if reps:
         r["ms"] = device_ms(lambda: sample_lod(*args), reps)
         r["plain_ms"] = host_ms(lambda: sample_lod_plain(*args), 3)
@@ -488,7 +495,8 @@ def b3_case(name: str, args, reps: int = 20) -> dict:
     log(f"B3 {name} ({tuple(u.shape)}, u strides {tuple(u.stride())}): max "
         f"abs err {err:.3g} (bit-equal {bool(torch.equal(o_k, o_p))}); "
         f"{times}bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bytes']}"
-        f" B, {rows} distinct rows of {live} live pixels)")
+        f" B, {read} pixels with a bundle, {rows} distinct rows of {live} "
+        "live pixels)")
     return r
 
 
@@ -524,7 +532,8 @@ def b3_edge_args(strips, channels: int, height: int, width: int, seed: int):
     >= N; u and v past the int32 range once scaled, +-inf and NaN (10%);
     lod NaN, +-inf, +-1e30 (5%); the top third fully magnified (lod < 0),
     the middle third fully minified (lod past the last level).  u and v
-    are strided views of one (H, W, 2) tensor."""
+    are the planes of a (2, H, W + 5) tensor cropped to W, strided views
+    like the main path's."""
     import torch
     from granite_tpu_torch.ops.texture import num_mip_levels
     dev = strips.device
@@ -542,8 +551,9 @@ def b3_edge_args(strips, channels: int, height: int, width: int, seed: int):
         return torch.where(hit, values[pick], x)
 
     inf, nan = float("inf"), float("nan")
-    uv = sprinkle(uniform(-2.0, 3.0, (height, width, 2)),
+    uv = sprinkle(uniform(-2.0, 3.0, (2, height, width + 5)),
                   [3e9, -3e9, 5e9, 7e8, 1e8, inf, -inf, nan], 0.1)
+    uv = uv[..., :width]
     third = height // 3
     lod = torch.cat([uniform(-12.0, -1.0, (third, width)),
                      uniform(levels, levels + 8.0, (third, width)),
@@ -552,7 +562,7 @@ def b3_edge_args(strips, channels: int, height: int, width: int, seed: int):
     lod = sprinkle(lod, [nan, inf, -inf, 1e30, -1e30], 0.05)
     bnd = torch.randint(-2, strips.shape[0] + 2, (height, width),
                         generator=g, device=dev, dtype=torch.int32)
-    return (strips, bnd, uv[..., 0], uv[..., 1], lod, channels)
+    return (strips, bnd, uv[0], uv[1], lod, channels)
 
 
 def b3t_texels(img, u, v, live) -> int:
@@ -632,12 +642,15 @@ def kernel_phases(results: dict) -> None:
     check(lib_err <= 1e-5, f"F.grid_sample differs from B3T by {lib_err}: "
           "not the same function, so no yardstick")
     lms = device_ms(library, 20)
-    # bytes: the coordinates, mask and output, and each distinct moment
-    # texel of the live pixels' 2x2 footprints once (8 B).
+    # bytes: the mask of every pixel, u and v of the live pixels (the
+    # others give 0 whatever they hold), each distinct moment texel of
+    # their 2x2 footprints once (8 B), the output.
     texels = b3t_texels(moments, u, v, live)
-    b = bound(nbytes(*vsm_args[1:], o_k) + texels * 8)
+    n_live = int(live.sum())
+    b = bound(nbytes(vsm_args[3], o_k)
+              + n_live * (u.element_size() + v.element_size()) + texels * 8)
     log(f"B3T VSM moments {tuple(moments.shape)} at {tuple(u.shape)} "
-        f"({int(live.sum())} live): max abs err {err:.3g}; kernel "
+        f"({n_live} live): max abs err {err:.3g}; kernel "
         f"{ms:.4f} ms, plain {pms:.3f} ms, grid_sample {lms:.4f} ms (max "
         f"abs diff on live pixels {lib_err:.3g}), bound "
         f"{b['bound_ms']:.4f} ms ({b['bytes']} B, {texels} distinct "

@@ -23,8 +23,11 @@
 // The design: warp-cooperative gathers through shared memory.
 // - A warp takes a batch of 32 consecutive pixels.  Each lane decodes
 //   one pixel (bundle, u, v, lod -> flat strip row, fx, fy, frac) into
-//   registers.  The four per-pixel inputs are read through (row, column)
-//   strides, so views of the uv planes need no copy.
+//   registers.  The four per-pixel inputs are read as rows of contiguous
+//   elements through a row stride, so views of the uv planes need no
+//   copy.
+// - The persistent block count is worked out on a device's first launch
+//   and kept: the frames are host-bound, so no occupancy query a call.
 // - The warp copies the batch's rows into shared memory with cp.async in
 //   chunks, chunk k on lane k % 32: 8-B chunks where rows are only 8-B
 //   aligned (f16 C=12: 120 B), 16-B chunks otherwise (f32 C=4: 80 B).
@@ -108,6 +111,12 @@ struct Layout {
   static constexpr int CHUNKS = ROW / CHUNK;
   static constexpr int WORDS = ROW / 4;
   static constexpr bool STAGE_OUT = C > 4;  // C=4 is one float4 a lane
+  // Blocks an SM that the launch bounds hold the registers to.  C=12: the
+  // 6 its shared memory allows (6 x 36,864 B; left free, the compiler
+  // takes 94 registers, which allow only 5).  C=4: 9, the 56 registers
+  // the compiler takes when free (the 10 its shared memory allows cost
+  // registers and ran slower).
+  static constexpr int MIN_BLOCKS = STAGE_OUT ? 6 : 9;
   static_assert(ROW % 8 == 0, "strip rows are whole 8-byte chunks");
   static_assert(CHUNKS % 2 == 1,
                 "an odd chunk stride keeps the lanes on distinct banks");
@@ -121,8 +130,8 @@ struct WarpShared {
   alignas(16) float out[Layout<T, C>::STAGE_OUT ? 32 * C : 4];
 };
 
-// The per-pixel inputs, each read as rows of `width` elements: element i
-// of input k lies at (i / width) * row[k] + (i % width) * col[k].
+// The per-pixel inputs, each read as rows of `width` contiguous elements:
+// element i of input k lies at (i / width) * row[k] + i % width.
 struct Inputs {
   const int* bundle;
   const float* u;
@@ -130,7 +139,6 @@ struct Inputs {
   const float* lod;
   long long width;
   long long row[4];  // bundle, u, v, lod
-  long long col[4];
 };
 
 // A decoded pixel: its flat strip row (-1: output 0) and lerp weights.
@@ -152,10 +160,10 @@ __device__ __forceinline__ Raw fetch(const Inputs& in, long long i,
     const unsigned int w = (unsigned int)in.width;
     const unsigned int r = (unsigned int)i / w;
     const long long c = (unsigned int)i - r * w;
-    p.b = in.bundle[r * in.row[0] + c * in.col[0]];
-    p.u = in.u[r * in.row[1] + c * in.col[1]];
-    p.v = in.v[r * in.row[2] + c * in.col[2]];
-    p.lod = in.lod[r * in.row[3] + c * in.col[3]];
+    p.b = in.bundle[r * in.row[0] + c];
+    p.u = in.u[r * in.row[1] + c];
+    p.v = in.v[r * in.row[2] + c];
+    p.lod = in.lod[r * in.row[3] + c];
   }
   return p;
 }
@@ -305,7 +313,7 @@ __device__ __forceinline__ void shade_batch(const Tap& t,
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Layout<T, C>::MIN_BLOCKS)
     sample_lod_kernel(const unsigned char* __restrict__ strip, int n_bundles,
                       int rows, int size, int levels, Inputs in,
                       float* __restrict__ out, long long n) {
@@ -343,24 +351,41 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Blocks of the variant that fit on device `dev` at once, worked out on
+// the device's first launch and kept (0: not yet known).
+template <typename T, int C>
+cudaError_t resident_blocks(int dev, long long* fit) {
+  static long long known[MAX_DEVICES];
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (known[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sample_lod_kernel<T, C>, THREADS, 0);
+    if (err != cudaSuccess) return err;
+    known[dev] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  }
+  *fit = known[dev];
+  return cudaSuccess;
+}
+
 template <typename T, int C>
 int launch(const void* strip, int n_bundles, int rows, int size, int levels,
            const Inputs& in, float* out, long long n, cudaStream_t stream) {
   if (n > 0) {
-    auto kernel = sample_lod_kernel<T, C>;
-    int dev = 0, sms = 0, per_sm = 0;
+    int dev = 0;
+    long long fit = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          THREADS, 0);
+    if (err == cudaSuccess) err = resident_blocks<T, C>(dev, &fit);
     if (err != cudaSuccess) return (int)err;
     // Persistent: as many blocks as fit on the card at once, or fewer.
     const long long want = ((n + 31) / 32 + WARPS - 1) / WARPS;
-    const long long fit = (long long)(per_sm > 0 ? per_sm : 1) * sms;
     const long long blocks = want < fit ? want : fit;
-    kernel<<<(int)blocks, THREADS, 0, stream>>>(
+    sample_lod_kernel<T, C><<<(int)blocks, THREADS, 0, stream>>>(
         static_cast<const unsigned char*>(strip), n_bundles, rows, size,
         levels, in, out, n);
   }
@@ -419,20 +444,18 @@ __global__ void sample_bilinear_kernel(const float2* __restrict__ img,
 }  // namespace granite
 
 // B3, f16 texels with 12 channels or f32 texels with 4.  bundle (int32),
-// u, v, lod (f32) are read as rows of `width` elements through their
-// (row, column) strides in elements; out is a contiguous (n, channels)
-// f32 array.
+// u, v, lod (f32) are read as rows of `width` contiguous elements through
+// their row strides in elements; out is a contiguous (n, channels) f32
+// array.
 extern "C" int granite_sample_lod(
     const void* strip, int is_half, int n_bundles, int rows, int size,
     int channels, const int* bundle, const float* u, const float* v,
-    const float* lod, long long width, long long bundle_row,
-    long long bundle_col, long long u_row, long long u_col, long long v_row,
-    long long v_col, long long lod_row, long long lod_col, float* out,
-    long long n, int levels, cudaStream_t stream) {
+    const float* lod, long long width, long long bundle_row, long long u_row,
+    long long v_row, long long lod_row, float* out, long long n, int levels,
+    cudaStream_t stream) {
   using granite::b3::launch;
-  const granite::b3::Inputs in{
-      bundle, u, v, lod, width, {bundle_row, u_row, v_row, lod_row},
-      {bundle_col, u_col, v_col, lod_col}};
+  const granite::b3::Inputs in{bundle, u, v, lod, width,
+                               {bundle_row, u_row, v_row, lod_row}};
   if (width < 1) return (int)cudaErrorInvalidValue;
   if (is_half && channels == 12)  // materials
     return launch<__half, 12>(strip, n_bundles, rows, size, levels, in, out,

@@ -49,10 +49,10 @@ SIGNATURES = {
     "granite_raster_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P),
     # B3: strip, half, n_bundles, rows, size, channels, bundle, u, v, lod,
-    #     width, (row, column) strides of bundle, u, v, lod, out, n_pixels,
-    #     levels, stream
+    #     width, row strides of bundle, u, v, lod, out, n_pixels, levels,
+    #     stream
     "granite_sample_lod": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
-                           _L, _L, _L, _L, _L, _L, _L, _L, _P, _L, _I, _P),
+                           _L, _L, _L, _L, _P, _L, _I, _P),
     # B3T: img, h, w, channels, u, v, live, out, n_pixels, stream
     "granite_sample_bilinear": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     # B4: planes, n_planes, ph, pw, lights, n_light_cap, tile_masks,

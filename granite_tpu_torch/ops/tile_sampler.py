@@ -50,15 +50,18 @@ def sample_lod_plain(strips, bundle, u, v, lod, channels: int):
     return _finite_or_zero(out)
 
 
-def row_strides(t, name: str = "tensor"):
-    """(row, column) strides in elements that read `t` as rows of its last
-    dimension: element i lies at (i // W) * row + (i % W) * column, W =
-    t.shape[-1].  Contiguous tensors and views such as uv[..., 0] of an
-    (H, W, 2) plane or a crop of a padded plane have this form; raises
-    for a layout whose leading dimensions do not merge into one."""
+def row_stride(t, name: str = "tensor"):
+    """The row stride in elements that reads `t` as rows of its last
+    dimension: element i lies at (i // W) * row + i % W, W = t.shape[-1].
+    Contiguous tensors and views such as a plane of the (P, H, W) G-buffer
+    or a crop of a padded plane have this form; raises for a last
+    dimension that is not contiguous or leading dimensions that do not
+    merge into one."""
     if t.dim() == 0:
-        return 0, 0
-    col = t.stride(-1)
+        return 0
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: column stride {t.stride(-1)}, the kernel "
+                         "reads rows of contiguous elements")
     row = span = None
     for size, stride in zip(reversed(t.shape[:-1]),
                             reversed(t.stride()[:-1])):
@@ -70,14 +73,14 @@ def row_strides(t, name: str = "tensor"):
             raise ValueError(f"{name}: strides {t.stride()} for shape "
                              f"{tuple(t.shape)} do not read as rows")
         span = stride * size
-    return (0 if row is None else row), col
+    return 0 if row is None else row
 
 
 def sample_lod(strips, bundle, u, v, lod, channels: int):
     """Kernel B3: strips (N, HS-1, S, 5C), f16 with C = 12 or f32 with
     C = 4; bundle (...) int32 (-1 = skip); u, v, lod (...) f32 ->
     (..., channels) f32.  bundle, u, v and lod may be strided views (see
-    row_strides): the kernel reads them in place."""
+    row_stride): the kernel reads them in place."""
     dev = strips.device
     inputs = {"bundle": bundle, "u": u, "v": v, "lod": lod}
     if dev.type == "cpu" and all(t.device.type == "cpu"
@@ -110,13 +113,12 @@ def sample_lod(strips, bundle, u, v, lod, channels: int):
             raise ValueError(f"sample_lod: {name} {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}, expected "
                              f"{tuple(shape)} {dtype} on {dev}")
-        strides.append(row_strides(t, name))
+        strides.append(row_stride(t, name))
     out = torch.empty(shape + (channels,), dtype=torch.float32, device=dev)
     K.launch("B3", "granite_sample_lod", K.ptr(strips),
              int(strips.dtype == torch.float16), N, rows, S, channels,
              K.ptr(bundle), K.ptr(u), K.ptr(v), K.ptr(lod),
-             max(shape[-1], 1) if shape else 1,
-             *[s for pair in strides for s in pair],
+             max(shape[-1], 1) if shape else 1, *strides,
              K.ptr(out), u.numel(), num_mip_levels(S, S))
     return out
 

@@ -17,7 +17,7 @@ from granite_tpu_torch.assets import texture_array as TTA
 from granite_tpu_torch.ops import fastmath as TFM
 from granite_tpu_torch.ops import light_shadows as TL
 from granite_tpu_torch.ops import texture as TT
-from granite_tpu_torch.ops.tile_sampler import row_strides, sample_lod
+from granite_tpu_torch.ops.tile_sampler import row_stride, sample_lod
 from granite_tpu_torch.renderer import environment as TE
 
 HW = (48, 80)
@@ -160,29 +160,36 @@ def test_b3_strided_views_match_contiguous():
 @pytest.mark.parametrize("make", [
     lambda t: t,                                   # contiguous
     lambda t: t[:, :40, :72].movedim(0, -1)[..., 1],   # uv[..., 1] of a crop
-    lambda t: t.movedim(0, -1)[..., 0],            # stride-2 columns
+    lambda t: t.movedim(0, -1)[..., 0],            # uv[..., 0], whole plane
     lambda t: t[0, ::2, 3:9],                      # every other row
     lambda t: t[:, 5:6, :].movedim(0, -1)[..., 0],     # one row
     lambda t: t[0, 7, 11],                         # 0-d
 ])
 def test_row_strides_read_the_view(make):
-    """The kernel reads input i at (i // W) * row + (i % W) * col of the
-    view's storage: row_strides gives those strides for the main path's
-    views."""
+    """The kernel reads input i at (i // W) * row + i % W of the view's
+    storage: row_stride gives that stride for the main path's views."""
     base = torch.arange(2 * 48 * 80, dtype=torch.float32).reshape(2, 48, 80)
     t = make(base)
-    row, col = row_strides(t)
+    row = row_stride(t)
     W = t.shape[-1] if t.dim() else 1
     i = torch.arange(t.numel())
-    flat = base.reshape(-1)[t.storage_offset() + (i // W) * row
-                            + (i % W) * col]
+    flat = base.reshape(-1)[t.storage_offset() + (i // W) * row + i % W]
     assert torch.equal(flat, t.reshape(-1))
 
 
 def test_row_strides_rejects_unmergeable_layouts():
     t = torch.zeros(4, 6, 8).permute(1, 0, 2)      # rows not in order
     with pytest.raises(ValueError):
-        row_strides(t)
+        row_stride(t)
+
+
+def test_row_stride_rejects_column_strides():
+    """The kernel reads each row's elements contiguously: an (H, W, 2)
+    tensor's [..., 0] is refused, a width-1 column is not."""
+    t = torch.zeros(6, 8, 2)
+    with pytest.raises(ValueError):
+        row_stride(t[..., 0])
+    assert row_stride(t[:, :1, 0]) == 16
 
 
 def test_b3_wrapper_never_runs_plain_on_other_devices():
