@@ -56,13 +56,32 @@
                     (B4 with AO) and SSR.
      fsr2:          the bench config with FSR2 at resolutionScale 0.75
                     (renders 1440x810, outputs 1920x1080).
-   The last two are TAA paths: their chained camera stands still and
-   only the jitter moves, as in the reference's chained TAA.
+     ocean_ground:  the bench config with the FFT ocean and the terrain
+                    (BASELINE config 5; rasterMaxVisible raised by the two
+                    grids' 65,536 triangles), orbiting.  Its raster
+                    overflow and clamp counters must read 0, and two
+                    chained frames from the same history at elapsed times
+                    0 and 5 s must differ where two at 0 s agree.
+     decals_meshlet: the bench config with every mesh re-encoded through
+                    the MLT2 meshlet codec and 16 volumetric decals
+                    placed with the scene API on the surfaces at a grid of
+                    frame 0's pixels, orbiting.  Before its counts are
+                    reset, frame 0 without the decals must differ from
+                    frame 0 with them in >= 0.1% of the pixels.
+   deferred_post and fsr2 are TAA paths: their chained camera stands
+   still and only the jitter moves, as in the reference's chained TAA.
+   The traced frames also give each pass's device time a frame (the
+   render graph's `pass:` ranges and the viewer's `decals` range).
 4. Cross-device checks at 128x72 on the card and on the CPU (plain
    versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
-   forward_shadow, deferred_smaa, forward_vsm_fxaa (with
-   materialTileSampler "true", so both devices take the tiled VSM route),
-   deferred_taa_fog, deferred_fsr2 and deferred_ssao_ssr.
+   forward_shadow, deferred_smaa, forward_vsm_fxaa, deferred_taa_fog,
+   deferred_fsr2, deferred_ssao_ssr, deferred_ocean_ground,
+   deferred_decals (also once with one decal node, as
+   tests/test_decals.py places it) and deferred_meshlet, each with
+   materialTileSampler "true": "auto" takes the tiled routes on the card
+   only (the VSM term through B3T, the full-resolution specular
+   environment), and "true" sends the CPU down the same ones.
+Each phase's wall seconds are printed when it ends.
 Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
 1080p bench-shape case, the other cases under "cases", max_abs_err over
@@ -89,18 +108,32 @@ FORWARD_CONFIG = {"renderer": "forward", "hdrBloom": True,
 POST_CONFIG = {**BENCH_CONFIG, "postAA": "taa", "volumetricFog": True,
                "ssao": True, "ssr": True}
 FSR2_CONFIG = {**BENCH_CONFIG, "postAA": "taaFSR2", "resolutionScale": 0.75}
+# The bench cap plus the ocean's and the terrain's 128^2-quad grids.
+OCEAN_CONFIG = {**BENCH_CONFIG, "ocean": True, "terrain": True,
+                "rasterMaxVisible": 163840 + 2 * 32768}
+DECALS_CONFIG = {**BENCH_CONFIG, "volumetricDecals": True,
+                 "meshEncoding": "meshlet"}
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
               "deferred_post": (POST_CONFIG, ("B1", "B2", "B3", "B4")),
-              "fsr2": (FSR2_CONFIG, ("B1", "B2", "B3", "B4"))}
-# Golden configs checked card against CPU; materialTileSampler "true"
-# sends both devices down the tiled VSM route (B3T on the card).
-CROSS_DEVICE = {"deferred_hdr": {}, "forward_shadow": {},
-                "deferred_smaa": {},
-                "forward_vsm_fxaa": {"materialTileSampler": "true"},
-                "deferred_taa_fog": {}, "deferred_fsr2": {},
-                "deferred_ssao_ssr": {}}
+              "fsr2": (FSR2_CONFIG, ("B1", "B2", "B3", "B4")),
+              "ocean_ground": (OCEAN_CONFIG, ("B1", "B2", "B3", "B4")),
+              "decals_meshlet": (DECALS_CONFIG, ("B1", "B2", "B3", "B4"))}
+# Golden configs checked card against CPU: label -> (config name, with a
+# decal node).  Each runs with materialTileSampler "true", so both
+# devices take the tiled routes.
+CROSS_DEVICE = {name: (name, False) for name in (
+    "deferred_hdr", "forward_shadow", "deferred_smaa", "forward_vsm_fxaa",
+    "deferred_taa_fog", "deferred_fsr2", "deferred_ssao_ssr",
+    "deferred_ocean_ground", "deferred_decals", "deferred_meshlet")}
+CROSS_DEVICE["deferred_decals one decal node"] = ("deferred_decals", True)
+# Decals of the decals_meshlet path: the viewer's table capacity, each
+# box scaled to this share of its distance from the camera.
+DECAL_COUNT, DECAL_SIZE = 16, 0.08
+# At least this share of the frame's pixels changes under the decals, and
+# between the ocean's frames at elapsed times 0 and 5 s.
+MIN_CHANGED_SHARE = 0.001
 # Least-time yardsticks of the bound (H100 SXM, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -695,10 +728,15 @@ def kernel_phases(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def device_busy_ms(app, frames: int) -> float:
+def device_busy_ms(app, frames: int) -> tuple[float, dict]:
     """Device time a chained frame keeps the card busy: the kernels,
     copies and sets torch.profiler records over `frames` more frames,
-    without the render graph's `pass:` ranges (they span kernels)."""
+    without the named ranges (they span kernels).  Also each named range's
+    device ms a frame: the render graph's `pass:<name>` ranges and the
+    viewer's `decals` blend, each the device time of the kernels launched
+    inside the range's host-side event.  (key_averages() would merge in
+    the range's device-side annotation, whose time is the span from its
+    first kernel to its last, idle gaps included.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -707,9 +745,124 @@ def device_busy_ms(app, frames: int) -> float:
         app.render_frames_chained(FRAME_TIME, FRAME_TIME, frames,
                                   camera_orbit=ORBIT)
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
+    def named(key):
+        return key.startswith("pass:") or key == "decals"
+    ranges: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and named(ev.name):
+            ranges[ev.name] = ranges.get(ev.name, 0.0) \
+                + ev.device_time_total / 1e3 / frames
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
-               and not ev.key.startswith("pass:")) / 1e3 / frames
+               and not named(ev.key)) / 1e3 / frames
+    return busy, ranges
+
+
+def backbuffer_diff(a, b) -> int:
+    """Pixels whose rgb differ by more than 8 levels in some channel."""
+    d = (a[..., :3].int() - b[..., :3].int()).abs().amax(-1)
+    return int((d > 8).sum())
+
+
+def place_decals(app) -> int:
+    """DECAL_COUNT volumetric decals through the scene API, on the
+    surfaces seen at an 8x8 grid of frame 0's pixels (B2 + B3 resolve
+    them): each a node at the surface point, its local z along the
+    surface normal, scaled DECAL_SIZE x its distance from the camera,
+    with create_volumetric_decal.  -> decals placed."""
+    import numpy as np
+    import torch
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    params = app.build_frame_params(FRAME_TIME)
+    ext = params["external"]
+    clip, wpos, wnrm, wtan = SR.transform_vertices(
+        app.packed, ext["world"], ext["normal_mats"], params["view_proj"])
+    surf, _depth, _stats = SR.fused_raster_surface(
+        app.packed, clip, params["object_mask"], wpos, wnrm, wtan, WIDTH,
+        HEIGHT, max_visible=app._resolved_max_visible())
+    ys = torch.linspace(0.1 * HEIGHT, 0.9 * HEIGHT, 8).long()
+    xs = torch.linspace(0.1 * WIDTH, 0.9 * WIDTH, 8).long()
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    yy, xx = yy.flatten(), xx.flatten()
+    hit = surf["covered"][yy, xx].cpu().numpy()
+    check(int(hit.sum()) >= DECAL_COUNT,
+          f"only {int(hit.sum())} of 64 grid pixels see a surface")
+    pick = np.flatnonzero(hit)[np.linspace(0, int(hit.sum()) - 1,
+                                           DECAL_COUNT).astype(int)]
+    pos = surf["pos"][yy, xx].cpu().numpy()[pick]
+    nrm = surf["normal"][yy, xx].cpu().numpy()[pick]
+    eye = np.asarray(app.camera.position, np.float32)
+    for p, n in zip(pos, nrm):
+        n = n / max(float(np.linalg.norm(n)), 1e-6)
+        # the rotation taking +z to n, (w, x, y, z)
+        q = np.array([1.0 + n[2], -n[1], n[0], 0.0], np.float32)
+        if q[0] < 1e-6:
+            q = np.array([0.0, 1.0, 0.0, 0.0], np.float32)
+        q /= np.linalg.norm(q)
+        size = DECAL_SIZE * float(np.linalg.norm(p - eye))
+        node = app.scene.create_node(translation=p, rotation=q,
+                                     scale=(size, size, size))
+        app.scene.create_volumetric_decal(node, 0)
+    app.scene.update_transform_tree()
+    return len(pos)
+
+
+def decal_check(app) -> dict:
+    """Frame 0 of the path without decals, then the decals placed, the
+    graph re-baked (the decal pass joins, history starts over) and frame
+    0 again: >= MIN_CHANGED_SHARE of the pixels must change.  Resets the
+    launch counts just before the re-bake: from there on it is the
+    path's own run."""
+    import torch
+    from granite_tpu_torch.kernels import build as K
+    plain = app.render_frames_chained(FRAME_TIME, 0.0, 1)
+    placed = place_decals(app)
+    K.reset_launch_counts()
+    app.swapchain_updated(WIDTH, HEIGHT)
+    check(app._has_decals, "the decal pass is not in the frame")
+    decal = app.render_frames_chained(FRAME_TIME, 0.0, 1)
+    torch.cuda.synchronize()
+    live = int(app._param_cache[1]["decals"].count)
+    changed = backbuffer_diff(plain, decal)
+    need = int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
+    log(f"decals: {placed} placed, {live} in the frustum's table; frame 0 "
+        f"changes in {changed} pixels (> 8 levels) of {WIDTH * HEIGHT}, "
+        f"gate {need}")
+    log(f"meshEncoding=meshlet: {app.meshlet_meshes} of "
+        f"{len(app.info.meshes)} meshes re-encoded through MLT2")
+    check(live == DECAL_COUNT, f"{live} of {DECAL_COUNT} decals visible")
+    check(changed >= need, f"decals changed {changed} < {need} pixels")
+    check(app.meshlet_meshes == len(app.info.meshes) > 0,
+          "meshes left classic under meshEncoding=meshlet")
+    return dict(decals=live, decal_pixels=changed,
+                meshlet_meshes=app.meshlet_meshes)
+
+
+def ocean_check(app, stats: dict) -> dict:
+    """The ocean path's gates: the raster overflow and clamp counters read
+    0 (the grids fit under the raised rasterMaxVisible), and from the same
+    history two chained frames at elapsed times 0 and 5 s differ while
+    two at 0 s agree."""
+    import torch
+    for pass_name, st in stats.items():
+        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
+            check(st.get(k, 0) == 0,
+                  f"ocean_ground {pass_name} {k} = {st.get(k)}")
+    hist = app._history
+    frames = {}
+    for label, t0 in (("a", 0.0), ("b", 5.0), ("c", 0.0)):
+        app._history = hist
+        frames[label] = app.render_frames_chained(FRAME_TIME, t0, 1)
+    torch.cuda.synchronize()
+    moved = backbuffer_diff(frames["a"], frames["b"])
+    still = backbuffer_diff(frames["a"], frames["c"])
+    log(f"ocean: frames at 0 s and 5 s differ in {moved} pixels, two at "
+        f"0 s in {still}")
+    check(moved >= int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
+          and still * 100 <= moved,
+          f"the ocean does not follow the elapsed time ({moved} vs "
+          f"{still} pixels)")
+    return dict(ocean_moved_pixels=moved, ocean_still_pixels=still)
 
 
 def main_path(name: str) -> dict:
@@ -723,6 +876,12 @@ def main_path(name: str) -> dict:
     t0 = time.monotonic()
     app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
+    if name == "decals_meshlet":
+        # the check's frames and re-bake are not set-up: the set-up
+        # seconds stay comparable with the other paths'
+        t_check = time.monotonic()
+        decal_check(app)
+        t0 += time.monotonic() - t_check
     app.render_frames_chained(FRAME_TIME, 0.0, WARMUP, camera_orbit=ORBIT)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
@@ -737,7 +896,7 @@ def main_path(name: str) -> dict:
     host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
     ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
-    busy_ms = device_busy_ms(app, TRACED_FRAMES)
+    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
@@ -752,10 +911,15 @@ def main_path(name: str) -> dict:
         f"{1.0 - busy_ms / ms:.3f} of the untraced frame")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
+    log(f"device ms a frame by range {name} "
+        f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
     log(f"launches {name} {launches}")
-    # max_bin_entries and the overflow/clamp counters: printed, not
-    # gated (the reference clamps and drops the same way; the port counts)
+    # max_bin_entries and the overflow/clamp counters: printed, gated only
+    # on the ocean path (the reference clamps and drops the same way; the
+    # port counts)
     log(f"raster stats {stats}")
+    if name == "ocean_ground":
+        ocean_check(app, stats)
     check(img.shape == (HEIGHT, WIDTH, 4), f"backbuffer shape {img.shape}")
     check(ok, f"image gate failed: means {means}")
     for k in required:
@@ -771,11 +935,17 @@ def cross_device() -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
     from golden_utils import CONFIGS, psnr     # numpy only, no jax
-    for name, extra in CROSS_DEVICE.items():
-        cfg = {**CONFIGS[name], **extra}
+    for name, (golden, decal_node) in CROSS_DEVICE.items():
+        cfg = {**CONFIGS[golden], "materialTileSampler": "true"}
         imgs = {}
         for device in ("cuda", "cpu"):
             app = make_app(cfg, False, device)
+            if decal_node:
+                # tests/test_decals.py's box over the test scene's floor
+                node = app.scene.create_node(translation=(0, 0, 0),
+                                             scale=(6, 6, 6))
+                app.scene.create_volumetric_decal(node, 0)
+                app.scene.update_transform_tree()
             app.swapchain_updated(128, 72)
             out = None
             for i in range(2):
@@ -790,11 +960,20 @@ def cross_device() -> None:
 
 def main() -> int:
     import torch
+    t_start = time.monotonic()
     card, attrs = probe()
     results: dict = {}
     kernel_phases(results)
-    by_path = {name: main_path(name) for name in MAIN_PATHS}
+    log(f"phases 1-2 took {time.monotonic() - t_start:.1f} s")
+    by_path = {}
+    for name in MAIN_PATHS:
+        t = time.monotonic()
+        by_path[name] = main_path(name)
+        log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     cross_device()
+    log(f"phase 4 took {time.monotonic() - t:.1f} s; the run "
+        f"{time.monotonic() - t_start:.1f} s")
     kernels = []
     for k, (src, rep, _entries) in KERNELS.items():
         r = dict(results[k])

@@ -2,21 +2,25 @@
 slice needs): --frames --width --height --time-step --warmup-frames
 --png-path --stat, plus --device (default cuda; raises without CUDA).
 
-Frames run back to back with no host readback until the end; the stat
-JSON reports averageFrameTimeUs measured on the host clock around work
-that ends in a device synchronize, and names the device it ran on.
+Frames run back to back with no host readback until the end.  The stat
+JSON keeps the JAX engine's schema (core/stats.StatSink):
+averageFrameTimeUs on the host clock around work that ends in a device
+synchronize; gpu, the card's name or "cpu"; performanceCounters
+compileTimeMs (warm-up frames, the kernel build included) and
+wallTimePerFrameUs; passTimesUs, each `pass:<name>` range's device time
+a frame (CPU time on the CPU) when --profile traces the frames, else {}.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import json
 import time
 
 import numpy as np
 import torch
 
+from ..core.stats import StatSink
 from ..utils.image_io import save_png
 from ..utils.logging import LOGI
 
@@ -49,13 +53,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pass_times_us(prof, device: torch.device, frames: int) -> dict:
+    """Per-frame µs of each `pass:<name>` range, from its host-side
+    events: the device time of the kernels launched inside it on the
+    card, its CPU time on the CPU.  (key_averages() would merge in the
+    range's device-side annotation, whose time is the span from its first
+    kernel to its last, idle gaps included.)"""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("pass:"):
+            total = ev.device_time_total if device.type == "cuda" \
+                else ev.cpu_time_total
+            out[ev.name] = out.get(ev.name, 0.0) + total / frames
+    return out
+
+
 def run_headless(app, args: argparse.Namespace) -> int:
     frames = max(args.frames, 1)
     app.swapchain_updated(args.width, args.height)
+    device_name = (torch.cuda.get_device_name(app.device)
+                   if app.device.type == "cuda" else "cpu")
+    stats = StatSink(device_name)
     step = args.time_step or (1.0 / 60.0)
+    t_compile0 = time.perf_counter()
     for i in range(max(args.warmup_frames, 0)):
         app.render_frame(step, i * step)
     _sync(app.device)
+    stats.counters["compileTimeMs"] = \
+        (time.perf_counter() - t_compile0) * 1e3
     prof = contextlib.nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -67,25 +93,27 @@ def run_headless(app, args: argparse.Namespace) -> int:
         for i in range(frames):
             out = app.render_frame(step, i * step)
         _sync(app.device)
-        avg_us = (time.perf_counter() - t0) * 1e6 / frames
+        total_s = time.perf_counter() - t0
+    for _ in range(frames):
+        stats.add_frame(total_s / frames)
+    stats.counters["wallTimePerFrameUs"] = 1e6 * total_s / frames
     if args.profile:
         sort = "device_time_total" if app.device.type == "cuda" \
             else "cpu_time_total"
         with open(args.profile, "w") as f:
             f.write(prof.key_averages().table(sort_by=sort, row_limit=80))
         LOGI("Wrote %s", args.profile)
+        for tag, us in _pass_times_us(prof, app.device, frames).items():
+            stats.intervals.accumulate(tag, us * 1e-6)
     host = out.cpu().numpy()
     if args.png_path:
         save_png(args.png_path, np.asarray(host))
         LOGI("Wrote %s", args.png_path)
-    device_name = (torch.cuda.get_device_name(app.device)
-                   if app.device.type == "cuda" else "cpu")
     if args.stat:
-        with open(args.stat, "w") as f:
-            json.dump({"averageFrameTimeUs": avg_us, "frames": frames,
-                       "device": device_name}, f)
-    LOGI("averageFrameTimeUs=%.1f over %d frames on %s", avg_us, frames,
-         device_name)
+        stats.write(args.stat)
+        LOGI("Wrote %s", args.stat)
+    LOGI("averageFrameTimeUs=%.1f over %d frames on %s",
+         stats.average_frame_time_us(), frames, device_name)
     return 0
 
 

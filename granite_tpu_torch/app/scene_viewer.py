@@ -2,15 +2,19 @@
 deferred/forward + HDR + post-processing subset of
 granite_tpu/app/scene_viewer.py).
 
-Graph (swapchain_updated): shadow-main [-> fog-volume] -> gbuffer
-[-> ssao] -> lighting [-> ssr] (deferred) or forward (forward)
+Graph (swapchain_updated): shadow-main [-> ocean-fft] [-> fog-volume]
+-> gbuffer [-> ssao] -> lighting [-> ssr] (deferred) or forward (forward)
 [-> taa-resolve | fsr2-upscale] -> bloom-threshold / luminance /
 bloom-down0-3 / bloom-up0-1 -> tonemap -> sRGB backbuffer, or with an
 LDR AA tonemap -> ldr -> fxaa|smaa -> sRGB backbuffer.  The frame
 renders at resolutionScale x the display size; FSR2 upscales to display
 size before the HDR chain, otherwise the tonemap resizes and sharpens.
 Temporal AA jitters the camera per frame (TemporalJitter) and the
-surface pass emits motion vectors.  Kernels: B1 for the sun shadow map
+surface pass emits motion vectors.  The FFT ocean (ocean-fft pass, its
+grid displaced at vertex transform by the elapsed time) and the terrain
+join the scene before it is packed; meshEncoding "meshlet" re-encodes the
+static meshes through the MLT2 codec; volumetric decals blend into the
+resolved base color before lighting.  Kernels: B1 for the sun shadow map
 and the clustered light shadow atlas, B2 + B3 for the surface, B3 + B4
 for lighting (B4 takes the SSAO plane), B3T for the VSM sun term.  Config
 knobs keep the reference's config.json names; a knob value the port does
@@ -39,6 +43,9 @@ from ..math.muglm import quat_from_axis_angle, quat_rotate
 from ..ops import hdr as HDR
 from ..ops import taa as TAA
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
+from ..ops.decals import (
+    apply_decals, build_decal_strips, builtin_decal_image, pack_decals,
+)
 from ..ops.fsr2 import fsr2_jitter_phases, fsr2_upscale
 from ..ops.fxaa import fxaa
 from ..ops.light_shadows import assign_slices, pack_atlas
@@ -54,6 +61,10 @@ from ..ops.volumetric_fog import (
     fog_accumulate, fog_light_density,
 )
 from ..renderer.environment import Environment, procedural_sky_equirect
+from ..renderer.ground import (
+    GroundLOD, fbm_heightmap, flat_grid_mesh, ground_mesh,
+)
+from ..renderer.ocean import Ocean, OceanConfig
 from ..renderer.render_context import RenderContext
 from ..renderer.scene_renderer import (
     PackedScene, fused_raster_surface, motion_vectors, pack_scene,
@@ -66,7 +77,8 @@ from ..scene.scene import (
     Scene,
 )
 from ..scene.scene_formats import (
-    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, SceneInfo,
+    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, MaterialData, NodeData,
+    SceneInfo,
 )
 from ..utils.logging import LOGI, LOGW
 from .headless import headless_main
@@ -197,18 +209,19 @@ class ViewerConfig:
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
         far (deferred/forward, HDR, every postAA, fog, SSAO/SSR, render
-        scale, the kernel route)."""
+        scale, ocean, terrain, volumetric decals, meshlet encoding, the
+        kernel route)."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1,),
             "directional_light_cascaded_shadows": (False,),
             "clustered_lights_shadows_vsm": (False,),
             "volumetric_fog_regions": (False,),
-            "volumetric_decals": (False,), "volumetric_diffuse": (False,),
+            "volumetric_diffuse": (False,),
             "texture_streaming": (False,), "env_tile_sampler": (True,),
-            "env_specular_half_res": (False,), "mesh_encoding": ("classic",),
+            "env_specular_half_res": (False,),
+            "mesh_encoding": ("classic", "meshlet"),
             "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
-            "post_aa": _POST_AA,
-            "ocean": (False,), "terrain": (False,), "show_ui": (False,),
+            "post_aa": _POST_AA, "show_ui": (False,),
             "occlusion_culling": (False,), "rescale_scene": (False,),
         }
         for name, allowed in need.items():
@@ -232,10 +245,23 @@ class ViewerConfig:
                                       "port (0 = no compaction)")
 
 
+def _add_child_node(info: SceneInfo, node: NodeData) -> int:
+    """Append `node` as a child of the first root (or as the root)."""
+    idx = len(info.nodes)
+    info.nodes.append(node)
+    if info.roots:
+        info.nodes[info.roots[0]].children.append(idx)
+    else:
+        info.roots.append(idx)
+    return idx
+
+
 class SceneViewerApplication:
     CLUSTER_Z_SLICES = 32
     CLUSTER_TILE = 64
     LIGHT_CAPACITY = 32
+    DECAL_CAPACITY = 16
+    DECAL_LAYERS = 2
 
     @staticmethod
     def add_cli(parser) -> None:
@@ -248,7 +274,19 @@ class SceneViewerApplication:
 
     def __init__(self, args=None, device="cuda"):
         """args: namespace with `config` (path or None) and `bench_scene`;
-        device: 'cuda' (raises without a card) or 'cpu'."""
+        device: 'cuda' (raises without a card) or 'cpu'.  Scene files
+        and scene cameras are not part of the port yet: a non-None
+        `scene` or a `camera_index` other than -1 raises
+        NotImplementedError instead of rendering the procedural scene."""
+        if args is not None and getattr(args, "scene", None) is not None:
+            raise NotImplementedError(
+                f"scene={args.scene!r}: loading a scene file is not part "
+                "of the port yet (the bench scene or the procedural test "
+                "scene only)")
+        if args is not None and getattr(args, "camera_index", -1) != -1:
+            raise NotImplementedError(
+                f"camera_index={args.camera_index!r}: scene cameras are "
+                "not part of the port yet (-1 frames the scene bounds)")
         self.device = resolve_device(device)
         self.config = (ViewerConfig.from_json(args.config)
                        if args is not None and getattr(args, "config", None)
@@ -263,8 +301,48 @@ class SceneViewerApplication:
             info = build_default_test_scene()
             LOGI("Using procedural test scene")
         self.info = info
+        self.ocean = None
+        self.ground = None
+        self._ocean_obj = -1
+        self._ground_obj = -1
+        # A scene file's terrain settings (scene loading is not ported:
+        # always the defaults, as the JAX viewer without a scene file).
+        self._terrain_cfg: dict = {}
+        if self.config.ocean:
+            self._add_ocean(info)
+        if self.config.terrain:
+            self._add_terrain(info)
         self.scene = self._build_runtime_scene(info)
+        self.meshlet_meshes = 0
+        if self.config.mesh_encoding == "meshlet":
+            # Static meshes route through the MLT2 meshlet streams
+            # (skinned / morphed meshes keep classic: their joints and
+            # deltas have no stream), after the ocean and ground joined.
+            for i, md in enumerate(info.meshes):
+                if md.joints is None and md.morph_position_deltas is None \
+                        and md.encoding == "classic":
+                    info.meshes[i] = md.to_meshlets()
+                    self.meshlet_meshes += 1
+            LOGI("meshEncoding=meshlet: %d/%d meshes re-encoded",
+                 self.meshlet_meshes, len(info.meshes))
         self.packed: PackedScene = pack_scene(info, device=self.device)
+        v_node = self.packed.v_node
+        if self.ocean is not None:
+            # per-vertex mask of the ocean grid; water casts no shadow
+            self._ocean_vmask = v_node == self._ocean_node
+            self._ocean_obj = int(np.nonzero(
+                self.packed.obj_node == self._ocean_node)[0][0])
+        if self.ground is not None:
+            # The LOD terrain displaces at transform time; the shadow path
+            # has no camera, so the LOD ground only receives shadows (the
+            # baked terrain keeps casting).
+            self._ground_vmask = v_node == self._ground_node
+            self._ground_obj = int(np.nonzero(
+                self.packed.obj_node == self._ground_node)[0][0])
+        # Decal images (RGBA float linear, one per tex id); None takes
+        # the built-in decal image.  Read at swapchain_updated.
+        self.decal_images = None
+        self._decal_strips = None
         self.camera = self._frame_scene_camera()
         self.context = RenderContext()
         self.graph = RenderGraph()
@@ -285,6 +363,55 @@ class SceneViewerApplication:
         self.raster_stats: dict = {}
 
     # -- scene ----------------------------------------------------------------
+    def _add_ocean(self, info: SceneInfo) -> None:
+        """Compose an FFT ocean into the scene (renderer/ocean.cpp;
+        BASELINE config 5)."""
+        self.ocean = Ocean(OceanConfig(), device=self.device)
+        mat = len(info.materials)
+        info.materials.append(MaterialData(
+            name="ocean",
+            base_color_factor=np.array([0.02, 0.07, 0.12, 1], np.float32),
+            roughness_factor=0.15, metallic_factor=0.0))
+        mesh = len(info.meshes)
+        info.meshes.append(self.ocean.grid_mesh(mat))
+        self._ocean_node = _add_child_node(info, NodeData(
+            name="ocean", translation=np.array([0, -0.8, 0], np.float32),
+            meshes=[mesh]))
+
+    def _add_terrain(self, info: SceneInfo) -> None:
+        """Compose a heightmap terrain (renderer/ground.cpp).  terrain
+        {"lod": true} takes GroundLOD (a flat grid displaced per frame
+        with per-vertex distance LOD); otherwise the displacement is
+        baked into the vertex buffer at load."""
+        tc = self._terrain_cfg
+        world_size = float(tc.get("worldSize", 80.0))
+        amplitude = float(tc.get("amplitude", 2.5))
+        grid = int(tc.get("grid", 128))
+        mat = len(info.materials)
+        info.materials.append(MaterialData(
+            name="ground",
+            base_color_factor=np.array([0.25, 0.3, 0.12, 1], np.float32),
+            roughness_factor=0.95, metallic_factor=0.0))
+        mesh = len(info.meshes)
+        hm = fbm_heightmap(amplitude=amplitude, seed=int(tc.get("seed", 0)))
+        if tc.get("lod"):
+            self.ground = GroundLOD(hm, world_size=world_size, grid=grid,
+                                    max_lod=float(tc.get("maxLod", 5.0)),
+                                    base_patch_size=int(
+                                        tc.get("basePatchSize", 64)),
+                                    device=self.device)
+            md = flat_grid_mesh(world_size, grid, material=mat)
+            md.aabb_max[1] = amplitude      # conservative displaced AABB
+            info.meshes.append(md)
+        else:
+            info.meshes.append(ground_mesh(hm, world_size=world_size,
+                                           grid=grid, material=mat))
+        node = _add_child_node(info, NodeData(
+            name="ground", translation=np.array([0, -1.5, 0], np.float32),
+            meshes=[mesh]))
+        if self.ground is not None:
+            self._ground_node = node
+
     def _build_runtime_scene(self, info: SceneInfo) -> Scene:
         s = Scene()
         parent = {c: i for i, nd in enumerate(info.nodes)
@@ -338,6 +465,12 @@ class SceneViewerApplication:
         zn = max(self.camera.znear, 1e-3)
         zf = self.camera.zfar if self.camera.zfar > 0 else 1000.0
         self._cluster_range = (zn, zf)
+        self._has_decals = self.config.volumetric_decals and \
+            bool(self.scene.decal_node)
+        if self._has_decals and self._decal_strips is None:
+            imgs = self.decal_images or [builtin_decal_image()]
+            self._decal_strips = torch.as_tensor(build_decal_strips(imgs),
+                                                 device=self.device)
         self._build_light_shadow_atlas()
         # The frame renders at resolutionScale x the display size.
         rs = float(self.config.resolution_scale)
@@ -377,6 +510,12 @@ class SceneViewerApplication:
                     "shadow-depth", AttachmentInfo(SizeClass.ABSOLUTE, s, s,
                                                    channels=channels)) \
                 .set_execute(self._shadow_pass)
+        if self.ocean is not None:
+            n = self.ocean.config.fft_resolution
+            g.add_pass("ocean-fft", Queue.ASYNC_COMPUTE) \
+                .add_color_output("ocean-maps", AttachmentInfo(
+                    SizeClass.ABSOLUTE, n, n, channels=5)) \
+                .set_execute(self.ocean.fft_pass)
         if self.config.volumetric_fog:
             # Froxel fog volume: light density + accumulation in one pass;
             # the lit frame composites it.  The sun term is shadowed only
@@ -400,6 +539,8 @@ class SceneViewerApplication:
                 fwd.add_texture_input("fog-volume")
             if use_shadow:
                 fwd.add_texture_input("shadow-depth")
+            if self.ocean is not None:
+                fwd.add_texture_input("ocean-maps")
             fwd.set_execute(self._forward_pass)
 
         hdr_name = "hdr-ssr" if self.config.renderer == "deferred" \
@@ -483,6 +624,8 @@ class SceneViewerApplication:
             .add_depth_stencil_output("depth-main", rel(1, 1)) \
             .add_color_output("g-covered", rel(1, 1, torch.bool))
         self._add_motion_vectors(gb, rel)
+        if self.ocean is not None:
+            gb.add_texture_input("ocean-maps")
         gb.set_execute(self._gbuffer_pass)
         if self.config.ssao:
             g.add_pass("ssao", Queue.COMPUTE) \
@@ -501,6 +644,9 @@ class SceneViewerApplication:
             light.add_texture_input("fog-volume")
         if use_shadow:
             light.add_texture_input("shadow-depth")
+        if self.ocean is not None:
+            # the transparent queue re-runs the (displaced) transform
+            light.add_texture_input("ocean-maps")
         light.set_execute(self._lighting_pass)
         if self.config.ssr:
             # Screen-space reflections over the lit frame (deferred only).
@@ -556,9 +702,27 @@ class SceneViewerApplication:
         return {"shadow-depth": ctx.params[key]}
 
     def _transform(self, ctx):
+        """Vertex transform with the ocean's and the LOD terrain's
+        displacers, when the scene has them."""
+        p = ctx.params
+        fns = []
+        if self.ocean is not None:
+            maps = ctx.input("ocean-maps")
+            fns.append(lambda pos, nrm: self.ocean.displace(
+                pos, nrm, self._ocean_vmask, maps,
+                camera_pos=p["camera_pos"]))
+        if self.ground is not None:
+            fns.append(lambda pos, nrm: self.ground.displace(
+                pos, nrm, self._ground_vmask, p["camera_pos"]))
+        displace_fn = None
+        if fns:
+            def displace_fn(pos, nrm):
+                for f in fns:
+                    pos, nrm = f(pos, nrm)
+                return pos, nrm
         return transform_vertices(self.packed, ctx.input("world"),
                                   ctx.input("normal_mats"),
-                                  ctx.params["view_proj"])
+                                  p["view_proj"], displace_fn=displace_fn)
 
     def _resolved_max_visible(self):
         mv = self.config.raster_max_visible
@@ -614,10 +778,29 @@ class SceneViewerApplication:
                               p["prev_vp_uv"], p["taa_reproj"], self._rw,
                               self._rh)
 
+    def _apply_decals(self, ctx, surf):
+        """Mix volumetric decals into the resolved base color before
+        lighting (apply_volumetric_decals, volumetric_decal.h:22), inside
+        a `decals` range so torch.profiler times the blend on its own."""
+        if not self._has_decals:
+            return surf
+        p = ctx.params
+        with torch.profiler.record_function("decals"):
+            base, alpha = apply_decals(
+                surf["base_color"], surf["alpha"], surf["pos"], p["decals"],
+                p["decal_strips"], layers=self.DECAL_LAYERS)
+            out = dict(surf)
+            cov = surf["covered"]
+            out["base_color"] = torch.where(cov[..., None], base,
+                                            surf["base_color"])
+            out["alpha"] = torch.where(cov, alpha, surf["alpha"])
+        return out
+
     def _forward_pass(self, ctx):
         """The forward renderer: surface and lighting in one pass."""
         xf = self._transform(ctx)
         surf, depth = self._raster_surface(ctx, xf, "forward")
+        surf = self._apply_decals(ctx, surf)
         out = {"hdr": self._lit_color(ctx, surf, depth, xf),
                "depth-main": depth}
         if self._use_taa:
@@ -627,6 +810,7 @@ class SceneViewerApplication:
     def _gbuffer_pass(self, ctx):
         surf, depth = self._raster_surface(ctx, self._transform(ctx),
                                            "gbuffer")
+        surf = self._apply_decals(ctx, surf)
         out = {"g-base": surf["base_color"], "g-normal": surf["normal"],
                "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
                                     dim=-1),
@@ -647,22 +831,24 @@ class SceneViewerApplication:
     def light_kwargs(self, params, shadow_map):
         """Keyword arguments of shade_surface_fused for this frame."""
         p = params
+        # materialTileSampler picks the reference's routes: the tiled
+        # half-res VSM term through B3T or the classic per-pixel term, and
+        # the specular environment at full resolution or at every other
+        # pixel, upsampled (B3 fetches materials and environment on every
+        # device).
+        tiled = self._on_here(self.config.material_tile_sampler)
         kw = dict(shadow_map=shadow_map,
                   shadow_uv_mat=p["shadow_uv_mat"],
                   width=self._rw, height=self._rh, background=None,
-                  # materialTileSampler picks the VSM route, as in the
-                  # reference: the tiled half-res term through B3T, or
-                  # the classic per-pixel term (B3's material fetch runs
-                  # on every device).
                   shadow_tiled=(
-                      self.config.directional_light_shadows_vsm
-                      and self._on_here(self.config.material_tile_sampler)),
+                      self.config.directional_light_shadows_vsm and tiled),
                   shadow_half_res=self._on_here(
                       self.config.shadow_term_half_res),
                   env={"strips": self.environment.strips,
                        "sh": self.environment.sh,
                        "levels": self.environment.num_levels,
-                       "sky_params": self.environment.sky_params})
+                       "sky_params": self.environment.sky_params,
+                       "tiled": tiled})
         if self._has_lights:
             zn, zf = self._cluster_range
             kw.update(lights=p["lights"], z_masks=p["z_masks"],
@@ -866,7 +1052,8 @@ class SceneViewerApplication:
     # -- frame ------------------------------------------------------------------
     def sun_shadow_view(self):
         """(light view-proj fitted to the scene bounds, static casters
-        inside it as an (objects,) bool mask)."""
+        inside it as an (objects,) bool mask).  The ocean and the LOD
+        ground cast no sun shadow."""
         scene = self.scene
         mn = scene.r_world_min.min(axis=0)
         mx = scene.r_world_max.max(axis=0)
@@ -874,6 +1061,9 @@ class SceneViewerApplication:
         mask = np.zeros(self.packed.num_objects, bool)
         mask[scene.gather_visible_static_shadow_renderables(
             Frustum(light_vp))] = True
+        for obj in (self._ocean_obj, self._ground_obj):
+            if obj >= 0:
+                mask[obj] = False
         return light_vp, mask
 
     def _view_params(self, ctx: RenderContext, lights) -> dict:
@@ -895,11 +1085,18 @@ class SceneViewerApplication:
         return (self.camera.position.tobytes(),
                 self.camera.rotation.tobytes(), float(frame_time))
 
-    def build_frame_params(self, frame_time: float) -> dict:
+    def _ocean_time(self, elapsed_time: float):
+        """The ocean's phase time: elapsed time modulo two periods."""
+        period = self.ocean.config.animation_period
+        return self._t(np.float32(elapsed_time % (period * 2)))
+
+    def build_frame_params(self, frame_time: float,
+                           elapsed_time: float = 0.0) -> dict:
         """Host-side frame prep: culling, shadow matrices, the cached
-        static sun shadow map (kernel B1), light binning, uploads.  Under
-        TAA it steps the jitter first: the frame renders with the jittered
-        view-proj (culling keeps the un-jittered frustum)."""
+        static sun shadow map (kernel B1), light binning, the visible
+        decals, uploads.  Under TAA it steps the jitter first: the frame
+        renders with the jittered view-proj (culling keeps the
+        un-jittered frustum).  elapsed_time drives the ocean."""
         scene = self.scene
         scene.update_transform_tree()
         self.context.set_camera(self.camera)
@@ -953,6 +1150,18 @@ class SceneViewerApplication:
             params["static_shadow_depth"] = self._static_shadow_cache[1]
             if self.config.directional_light_shadows_vsm:
                 params["static_vsm_moments"] = self._static_shadow_cache[2]
+        if self.ocean is not None:
+            params["ocean_time"] = self._ocean_time(elapsed_time)
+        if self._has_decals:
+            # Only frustum-visible decals ride the table (the reference's
+            # visible_decals gather, clusterer.hpp:123).
+            dv = scene.gather_visible_volumetric_decals(self.context.frustum)
+            nodes = np.asarray(scene.decal_node, np.int32)[dv]
+            texs = np.asarray(scene.decal_tex, np.int32)[dv]
+            params["decals"] = pack_decals(world[nodes], texs,
+                                           capacity=self.DECAL_CAPACITY,
+                                           device=self.device)
+            params["decal_strips"] = self._decal_strips
         lights = self._collect_lights() if self._has_lights else None
         if lights is not None:
             params["lights"] = lights
@@ -976,13 +1185,15 @@ class SceneViewerApplication:
     def render_frame(self, frame_time: float, elapsed_time: float):
         """One frame -> (H, W, 4) uint8 backbuffer on the app's device.
         A still camera reuses the last frame's params, except under TAA,
-        where every frame steps the jitter."""
+        where every frame steps the jitter, and while an ocean exists,
+        whose phase follows elapsed_time."""
         cached = self._param_cache
         if cached is not None and self._jitter is None \
+                and self.ocean is None \
                 and cached[0] == self._frame_sig(frame_time):
             params = cached[1]
         else:
-            params = self.build_frame_params(frame_time)
+            params = self.build_frame_params(frame_time, elapsed_time)
         out, self._history = self.graph.execute(params, self._history)
         return out
 
@@ -995,30 +1206,38 @@ class SceneViewerApplication:
         chained bench).  Under TAA the camera stays still and
         camera_orbit is ignored, as in the reference: each frame takes
         its own jittered view-proj (and FSR2 jitter) from the host-side
-        jitter sequence, the rest of frame 0's params stay."""
+        jitter sequence, the rest of frame 0's params stay.  With an
+        ocean, frame i also takes the ocean time of t0 + i * frame_time
+        (a per-frame bank entry)."""
         cached = self._param_cache
         if cached is None or cached[0] != self._frame_sig(frame_time):
-            self.build_frame_params(frame_time)
+            self.build_frame_params(frame_time, t0)
             cached = self._param_cache
             if self._jitter is not None:
                 # the jitter bank below regenerates frame 0's step
                 self._jitter.unstep()
         params = cached[1]
         if self._jitter is not None:
-            return self._chain_jittered(params, n)
-        okey = (n, camera_orbit, cached[0])
-        if self._orbit_cache is None or self._orbit_cache[0] != okey:
-            self._orbit_cache = (okey, self._orbit_banks(params, n,
-                                                         camera_orbit))
+            banks = self._jitter_banks(n)
+        else:
+            okey = (n, camera_orbit, cached[0])
+            if self._orbit_cache is None or self._orbit_cache[0] != okey:
+                self._orbit_cache = (okey, self._orbit_banks(
+                    params, n, camera_orbit))
+            banks = self._orbit_cache[1]
+        if self.ocean is not None:
+            banks = [{**bank, "ocean_time": self._ocean_time(
+                t0 + i * frame_time)} for i, bank in enumerate(banks)]
         out = None
-        for bank in self._orbit_cache[1]:
+        for bank in banks:
             out, self._history = self.graph.execute({**params, **bank},
                                                     self._history)
         return out
 
-    def _chain_jittered(self, params: dict, n: int):
-        """n frames of a still, jittered camera: the un-jittered view-proj
-        is constant, so the reprojection params stay valid."""
+    def _jitter_banks(self, n: int) -> list:
+        """Per-frame jittered view-proj (and FSR2 jitter) of a still
+        camera: the un-jittered view-proj is constant, so the
+        reprojection params stay valid."""
         vp = self._jitter._saved_nojitter[-1]
         banks = []
         for _ in range(n):
@@ -1029,11 +1248,7 @@ class SceneViewerApplication:
             if self._use_fsr2:
                 bank["fsr2_jitter"] = self._t(self._jitter.last_jitter_uv())
             banks.append(bank)
-        out = None
-        for bank in banks:
-            out, self._history = self.graph.execute({**params, **bank},
-                                                    self._history)
-        return out
+        return banks
 
     def _orbit_banks(self, params: dict, n: int, camera_orbit: float):
         """Per-frame view params + light bins for the orbiting camera."""

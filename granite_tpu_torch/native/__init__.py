@@ -1,0 +1,168 @@
+"""ctypes bindings for the port's native MLT2 meshlet codec
+(meshlet2.cpp, a copy of the MLT2 half of
+granite_tpu/native/granite_native.cpp).
+
+Built from source with g++ -O2 -shared -fPIC -std=c++17 at first use into
+the repository's gitignored build/granite_tpu_torch/, under a name that
+carries a hash of the source and flags (an edited source is rebuilt, a
+stale binary never reused).  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+from ..kernels.build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().with_name("meshlet2.cpp")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+_lib = None
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"libgranite_meshlet2_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile meshlet2.cpp (no-op when the library for this exact source
+    exists).  Raises RuntimeError with the compiler's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)      # atomic against concurrent builders
+    return out
+
+
+def get_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        intp = ctypes.POINTER(ctypes.c_int)
+        lib.meshlet2_encode.argtypes = [f32p, f32p, f32p, ctypes.c_int, i32p,
+                                        ctypes.c_int, u8p, ctypes.c_int,
+                                        intp, intp]
+        lib.meshlet2_encode.restype = ctypes.c_int
+        lib.meshlet2_decode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                        f32p, f32p, f32p, i32p, intp, intp]
+        lib.meshlet2_decode.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def meshlet2_encode(positions: np.ndarray, normals, uvs,
+                    indices: np.ndarray):
+    """Full-attribute meshlet streams (MLT2).  Returns (blob bytes,
+    num_meshlets)."""
+    lib = get_lib()
+    positions = np.ascontiguousarray(positions, np.float32)
+    nv = len(positions)
+    if normals is None:
+        normals = np.zeros((nv, 3), np.float32)
+    if uvs is None:
+        uvs = np.zeros((nv, 2), np.float32)
+    normals = np.ascontiguousarray(normals, np.float32)
+    uvs = np.ascontiguousarray(uvs, np.float32)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if normals.shape != (nv, 3) or uvs.shape != (nv, 2) \
+            or indices.ndim != 2 or indices.shape[1] != 3:
+        raise ValueError("meshlet2_encode: positions (V,3), normals (V,3), "
+                         "uvs (V,2), indices (T,3) expected")
+    if len(indices) and (indices.min() < 0 or indices.max() >= nv):
+        raise ValueError("meshlet2_encode: index out of range")
+    nt = len(indices)
+    size = ctypes.c_int()
+    meshlets = ctypes.c_int()
+
+    def encode(cap: int):
+        out = np.empty(cap, np.uint8)
+        rc = lib.meshlet2_encode(
+            _ptr(positions, ctypes.c_float), _ptr(normals, ctypes.c_float),
+            _ptr(uvs, ctypes.c_float), nv, _ptr(indices, ctypes.c_int32), nt,
+            _ptr(out, ctypes.c_uint8), cap, ctypes.byref(size),
+            ctypes.byref(meshlets))
+        return rc, out
+
+    rc, out = encode(128 + nv * 24 + nt * 16)
+    if rc == -1:
+        # Scattered indices duplicate vertices past the estimate; the
+        # encoder reported the size it needs.
+        rc, out = encode(size.value)
+    if rc != 0:
+        raise RuntimeError(f"meshlet2_encode failed rc={rc}")
+    return bytes(out[:size.value]), meshlets.value
+
+
+# Meshlet2Header: vertex and triangle counts (u32), position AABB and UV
+# AABB (f32); then 14 bytes a vertex and 3 a triangle, padded to 4.
+_HEADER_BYTES = 48
+_VERTEX_BYTES = 14
+
+
+def blob_counts(data: np.ndarray, num_meshlets: int) -> tuple[int, int]:
+    """(vertices, triangles) a blob decodes to, read from its meshlet
+    headers; raises ValueError if the blob is shorter than they say."""
+    off = vertices = triangles = 0
+    for _ in range(num_meshlets):
+        if off + _HEADER_BYTES > len(data):
+            raise ValueError("meshlet blob truncated")
+        nv, nt = (int(c) for c in data[off:off + 8].view(np.uint32))
+        off += _HEADER_BYTES + nv * _VERTEX_BYTES
+        off = (off + 3 * nt + 3) & ~3
+        vertices += nv
+        triangles += nt
+    if off > len(data):
+        raise ValueError("meshlet blob truncated")
+    return vertices, triangles
+
+
+def meshlet2_decode(blob: bytes, num_meshlets: int, max_vertices: int,
+                    max_triangles: int):
+    """-> (positions (V,3), normals (V,3), uvs (V,2), indices (T,3)).
+    max_vertices / max_triangles: the decode capacity (an encoder
+    duplicates shared vertices; 3 T and T bound them); a blob that
+    decodes to more raises ValueError before any native call."""
+    data = np.frombuffer(blob, np.uint8)
+    nv_blob, nt_blob = blob_counts(data, num_meshlets)
+    if nv_blob > max_vertices or nt_blob > max_triangles:
+        raise ValueError(f"meshlet blob holds {nv_blob} vertices and "
+                         f"{nt_blob} triangles, capacity {max_vertices} and "
+                         f"{max_triangles}")
+    lib = get_lib()
+    pos = np.empty((max_vertices, 3), np.float32)
+    nrm = np.empty((max_vertices, 3), np.float32)
+    uv = np.empty((max_vertices, 2), np.float32)
+    idx = np.empty((max_triangles, 3), np.int32)
+    nv = ctypes.c_int()
+    nt = ctypes.c_int()
+    rc = lib.meshlet2_decode(
+        _ptr(data, ctypes.c_uint8), len(data), num_meshlets,
+        _ptr(pos, ctypes.c_float), _ptr(nrm, ctypes.c_float),
+        _ptr(uv, ctypes.c_float), _ptr(idx, ctypes.c_int32),
+        ctypes.byref(nv), ctypes.byref(nt))
+    if rc != 0:
+        raise RuntimeError(f"meshlet2_decode failed rc={rc}")
+    return (pos[:nv.value].copy(), nrm[:nv.value].copy(),
+            uv[:nv.value].copy(), idx[:nt.value].copy())

@@ -193,6 +193,10 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
     num_static_verts = 0
     v_off = 0
     for block, node_idx, md, nd in instances:
+        if md.encoding == "meshlet" and md.positions is None:
+            # MLT2 streams materialize to SoA at instantiation
+            # (MeshEncoding::MeshletDecoded).
+            md.decode_meshlets()
         v = len(md.positions)
         t = len(md.indices)
         pos_l.append(md.positions)
@@ -355,9 +359,13 @@ def project(world_pos, vp):
 
 
 def transform_vertices(scene: PackedScene, world, normal_mats, view_proj,
-                       skin_palette=None, morph_weights=None):
+                       skin_palette=None, morph_weights=None,
+                       displace_fn=None):
     """-> (clip (V, 4), world_pos (V, 3), world_normal (V, 3),
-    world_tangent (V, 4))."""
+    world_tangent (V, 4)).  displace_fn(world_pos, world_normal) ->
+    (pos, normal): procedural vertex displacement (ocean and terrain
+    heightfields, the analogue of ocean.vert's heightmap fetch), applied
+    before projection."""
     node = scene.v_node.long()
     wm = world[node]
     p, base_normals = apply_morphs(scene, scene.positions, scene.normals,
@@ -369,6 +377,8 @@ def transform_vertices(scene: PackedScene, world, normal_mats, view_proj,
         spos, snrm = _skin(scene, skin_palette, p, base_normals)
         world_pos = torch.cat([world_pos[:vs], spos])
         world_normal = torch.cat([world_normal[:vs], snrm])
+    if displace_fn is not None:
+        world_pos, world_normal = displace_fn(world_pos, world_normal)
     world_tan = _mat3_apply(wm[:, :3, :3], scene.tangents[:, :3])
     world_tangent = torch.cat([world_tan, scene.tangents[:, 3:4]], dim=1)
     return project(world_pos, view_proj), world_pos, world_normal, \
@@ -584,7 +594,10 @@ def material_lod(scene, duvdx, duvdy, lod_bias: float):
 
 def compute_env_products(surf, params, env, width: int, height: int,
                          background):
-    """(irradiance/pi, specular env (B3), background) per pixel."""
+    """(irradiance/pi, specular env (B3), background) per pixel.  Under
+    the analytic sky, env["tiled"] (default on) picks the reference's
+    route: the full-resolution fetch of its tile sampler, or its untiled
+    route, the fetch at every other pixel and a bilinear upsample."""
     n = surf["normal"]
     pos = surf["pos"]
     cov = surf["covered"]
@@ -603,8 +616,13 @@ def compute_env_products(surf, params, env, width: int, height: int,
             w.abs() < 1e-20, torch.full_like(w, 1e-20), w) - cam
         if env.get("sky_params"):
             background = analytic_sky(view_dirs, **env["sky_params"])
-            spec_env = sample_environment(env["strips"], refl, lod,
-                                          covered=cov)
+            if env.get("tiled", True):
+                spec_env = sample_environment(env["strips"], refl, lod,
+                                              covered=cov)
+            else:
+                spec_env = resize_bilinear(sample_environment(
+                    env["strips"], refl[::2, ::2], lod[::2, ::2]),
+                    height, width)
         else:
             dirs = torch.where(cov[..., None], refl, view_dirs)
             lod = torch.where(cov, lod, torch.zeros_like(lod))

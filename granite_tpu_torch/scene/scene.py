@@ -4,10 +4,12 @@ granite_tpu/scene/scene.py the port uses; reference: renderer/scene.hpp).
 Nodes are SoA arrays (parent, TRS); world transforms are updated level
 by level with batched matmuls.  Renderables are SoA too (node, mesh,
 flags, local AABB), and every gather query is one vectorized frustum
-cull over all AABBs.  The original's ECS bookkeeping, decals, fog
-regions and diffuse volumes are left out: no path of the port reads
-them.  tests/test_torch_host_copies.py holds this copy equal to the
-original.
+cull over all AABBs.  Volumetric decals are unit boxes on nodes
+(create_volumetric_decal, gather_visible_volumetric_decals).  The
+original's ECS entity pool, fog regions and diffuse volumes are left
+out: no path of the port reads them, so a decal's entity is its
+VolumetricDecalComponent alone.  tests/test_torch_host_copies.py holds
+this copy equal to the original.
 """
 
 from __future__ import annotations
@@ -17,6 +19,14 @@ import numpy as np
 from ..math.aabb import transform_aabbs
 from ..math.frustum import frustum_cull
 from ..math.transforms import compose_trs_batch
+
+class VolumetricDecalComponent:
+    """renderer/render_components.hpp VolumetricDecalComponent: the
+    marker the reference clusterer's decal gather queries."""
+
+    def __init__(self, index: int):
+        self.index = index
+
 
 RENDERABLE_OPAQUE = 1 << 0
 RENDERABLE_TRANSPARENT = 1 << 1
@@ -46,6 +56,12 @@ class Scene:
         self.r_aabb_max = np.zeros((0, 3), np.float32)
         self.r_world_min = np.zeros((0, 3), np.float32)
         self.r_world_max = np.zeros((0, 3), np.float32)
+        # Volumetric decals (scene.cpp:1059 create_volumetric_decal):
+        # each is a unit box [-0.5, 0.5]^3 on a node, with a texture id
+        # resolved by the app's decal strip array.
+        self.decal_node: list[int] = []
+        self.decal_tex: list[int] = []
+        self.decal_entity: list = []
 
     # -- node management --------------------------------------------------------
     def _grow_nodes(self) -> None:
@@ -166,6 +182,31 @@ class Scene:
         self.r_world_min = self._r_wmin_buf[:m]
         self.r_world_max = self._r_wmax_buf[:m]
         return n
+
+    # -- volumetric decals (scene.cpp:1059, scene.cpp:400) -----------------------
+    def create_volumetric_decal(self, node: int, tex_id: int = 0) -> int:
+        """Attach a unit-box decal volume to `node`
+        (Scene::create_volumetric_decal).  The node's world transform
+        maps the box into the scene; tex_id indexes the app's decal strip
+        array."""
+        idx = len(self.decal_node)
+        self.decal_node.append(node)
+        self.decal_tex.append(tex_id)
+        self.decal_entity.append(VolumetricDecalComponent(idx))
+        return idx
+
+    def gather_visible_volumetric_decals(self, frustum) -> np.ndarray:
+        """Frustum-visible decal indices
+        (Scene::gather_visible_volumetric_decals, scene.cpp:400): world
+        AABBs of the transformed unit boxes against the frustum planes."""
+        if not self.decal_node:
+            return np.zeros(0, np.int32)
+        w = self.world[np.asarray(self.decal_node, np.int32)]
+        mn, mx = transform_aabbs(
+            w, np.full((len(self.decal_node), 3), -0.5, np.float32),
+            np.full((len(self.decal_node), 3), 0.5, np.float32))
+        vis = frustum_cull(frustum.planes, mn, mx)
+        return np.nonzero(vis)[0].astype(np.int32)
 
     # -- visibility queries (scene.hpp:133-163 gather_visible_*) -----------------
     def _gather(self, planes, flag_mask: int) -> np.ndarray:

@@ -3,10 +3,10 @@ granite_tpu/scene/scene_formats.py the port uses; reference:
 renderer/formats/scene_formats.hpp).
 
 The records keep the fields the port reads or the scene builders set.
-MeshData keeps the classic SoA encoding only: the original's meshlet
-fields and its native MLT2 encode/decode hooks are left out until a
-path of the port renders meshlet-encoded meshes.
-tests/test_torch_host_copies.py holds this copy equal to the original.
+MeshData carries either the classic SoA arrays or an MLT2 meshlet blob
+(the port's native codec, granite_tpu_torch/native), decoded to SoA at
+instantiation.  tests/test_torch_host_copies.py holds this copy equal
+to the original.
 """
 
 from __future__ import annotations
@@ -61,8 +61,51 @@ class MeshData:
     material: int = -1
     aabb_min: np.ndarray = None
     aabb_max: np.ndarray = None
+    # MeshEncoding (managers/resource_manager.hpp:85-92): "classic"
+    # carries the SoA arrays above; "meshlet" carries an MLT2 blob that
+    # pack_scene decodes at instantiation (the MeshletDecoded path).
+    encoding: str = "classic"
+    meshlet_blob: Optional[bytes] = None
+    meshlet_count: int = 0
+    meshlet_vertices: int = 0      # decode capacity (duplicated verts)
+    meshlet_triangles: int = 0
+
+    def to_meshlets(self) -> "MeshData":
+        """Re-encode this mesh as MLT2 meshlet streams, dropping the raw
+        arrays.  Material and AABB are kept; normals and UVs ride the
+        streams."""
+        from ..native import meshlet2_encode
+        self.finalize()
+        blob, n = meshlet2_encode(self.positions, self.normals, self.uvs,
+                                  self.indices)
+        out = MeshData(material=self.material,
+                       aabb_min=self.aabb_min.copy(),
+                       aabb_max=self.aabb_max.copy())
+        out.encoding = "meshlet"
+        out.meshlet_blob = blob
+        out.meshlet_count = n
+        # meshlets duplicate shared vertices; bound by 3*T
+        out.meshlet_vertices = 3 * len(self.indices)
+        out.meshlet_triangles = len(self.indices)
+        return out
+
+    def decode_meshlets(self) -> "MeshData":
+        """Materialize the SoA arrays from the MLT2 blob in place."""
+        from ..native import meshlet2_decode
+        if self.encoding != "meshlet" or self.positions is not None:
+            return self
+        pos, nrm, uv, idx = meshlet2_decode(
+            self.meshlet_blob, self.meshlet_count,
+            self.meshlet_vertices, self.meshlet_triangles)
+        self.positions = pos
+        self.normals = nrm
+        self.uvs = uv
+        self.indices = idx
+        return self.finalize()
 
     def finalize(self) -> "MeshData":
+        if self.encoding == "meshlet" and self.positions is None:
+            return self.decode_meshlets()
         self.positions = np.ascontiguousarray(self.positions, np.float32)
         if self.indices is None:
             n = len(self.positions)

@@ -224,6 +224,39 @@ def test_scene_transforms_and_gathers():
             _eq(getattr(a, q)(fa), getattr(b, q)(fb))
 
 
+def test_scene_volumetric_decals():
+    """The decal half of Scene: create_volumetric_decal on nodes of both
+    Scene classes, then the frustum gather of the unit boxes."""
+    rng = _rng()
+    scenes = TS.Scene(), JS.Scene()
+    for i in range(24):
+        t = rng.normal(size=3) * 12
+        r = _quat(rng)
+        s = rng.uniform(0.3, 4, size=3)
+        for sc in scenes:
+            sc.create_node(parent=-1, translation=t, rotation=r, scale=s)
+    nodes = rng.permutation(24)[:16]
+    for k, node in enumerate(nodes):
+        idx = [sc.create_volumetric_decal(int(node), k % 3) for sc in scenes]
+        assert idx == [k, k]
+    for sc in scenes:
+        sc.update_transform_tree()
+    a, b = scenes
+    assert a.decal_node == b.decal_node and a.decal_tex == b.decal_tex
+    assert [e.index for e in a.decal_entity] == list(range(16))
+    assert all(isinstance(e, TS.VolumetricDecalComponent)
+               for e in a.decal_entity)
+    empty = TS.Scene(), JS.Scene()
+    for _ in range(4):
+        vp = (JM.perspective(1.0, 1.5, 0.1)
+              @ JM.look_at_matrix(rng.normal(size=3) * 10, np.zeros(3),
+                                  (0, 1, 0))).astype(np.float32)
+        got = a.gather_visible_volumetric_decals(TF.Frustum(vp))
+        _eq(got, b.gather_visible_volumetric_decals(JF.Frustum(vp)))
+        _eq(empty[0].gather_visible_volumetric_decals(TF.Frustum(vp)),
+            empty[1].gather_visible_volumetric_decals(JF.Frustum(vp)))
+
+
 def test_bench_scene_built_through_both():
     """build_bench_scene through the port's copies (muglm, mesh_util,
     scene_formats) equals the JAX package's, mesh by mesh."""

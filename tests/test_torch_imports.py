@@ -19,6 +19,7 @@ for name in names:
 loaded = sorted(k for k, v in sys.modules.items()
                 if (k == "jax" or k.startswith("jax.")) and v is not None)
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("JAX", loaded)
 print("GRANITE_TPU", sorted(k for k in sys.modules
                            if k.startswith("granite_tpu.")))
@@ -30,7 +31,13 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
-                 if line.startswith(("MODULES", "JAX", "GRANITE_TPU")))
+                 if line.startswith(("MODULES", "NAMES", "JAX",
+                                     "GRANITE_TPU")))
     assert int(lines["MODULES"]) >= 20
+    # the ocean, terrain, decal and meshlet modules and the stat sink
+    # (the native codec's loader included) are among them
+    assert {f"granite_tpu_torch.{m}" for m in (
+        "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
+        "renderer.ground", "renderer.ocean")} <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"

@@ -119,8 +119,9 @@ def test_forward_graph_passes():
 def _same(a, b, path="info"):
     if is_dataclass(a):
         # a is the JAX package's record, b the port's copy of it: every
-        # field of the copy matches, and the fields the copy left out
-        # (MeshData's meshlet encoding) hold their defaults.
+        # field of the copy matches, and a field the copy left out would
+        # hold its default (none is left out: MeshData keeps the meshlet
+        # fields since the port renders meshlet-encoded meshes).
         assert type(a).__name__ == type(b).__name__, path
         kept = {f.name for f in fields(b)}
         for f in fields(a):
@@ -206,7 +207,7 @@ def test_unsupported_knob_raises():
                       "volumetricFogRegions": True})
     with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
-    for knob in ({"msaa": 4}, {"ocean": True},
+    for knob in ({"msaa": 4}, {"volumetricDiffuse": True},
                  {"directionalLightShadowsCascaded": True}):
         with pytest.raises(NotImplementedError):
             _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
