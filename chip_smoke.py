@@ -68,6 +68,21 @@
                     frame 0's pixels, orbiting.  Before its counts are
                     reset, frame 0 without the decals must differ from
                     frame 0 with them in >= 0.1% of the pixels.
+     gltf_animated: a `.scene` file loaded through the viewer's scene
+                    argument, rendered through its camera 0: the bench
+                    scene written as glTF by the port's exporter (with a
+                    camera node), 4 instances of the skinned character
+                    and the morph sheet of tests/gltf_fixtures.py
+                    (rasterMaxVisible raised by their 106,496 triangles),
+                    orbiting; every frame animates, and B1 rasterizes the
+                    skinned casters into the sun map.  Set-up includes
+                    writing and parsing the files.  B1 must launch at
+                    least once in every timed frame, the raster overflow
+                    and clamp counters read 0, and two frames from the
+                    same history at elapsed 0 and 1 s must differ where
+                    two at 0 s agree.  After its counts are read, B1 is
+                    held against its plain version on the frame's
+                    dynamic casters (2048^2).
    deferred_post and fsr2 are TAA paths: their chained camera stands
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
@@ -77,7 +92,9 @@
    forward_shadow, deferred_smaa, forward_vsm_fxaa, deferred_taa_fog,
    deferred_fsr2, deferred_ssao_ssr, deferred_ocean_ground,
    deferred_decals (also once with one decal node, as
-   tests/test_decals.py places it) and deferred_meshlet, each with
+   tests/test_decals.py places it), deferred_meshlet and deferred_hdr on
+   a `.scene` of the test scene, one character and the morph sheet
+   through its camera 0, each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
    environment), and "true" sends the CPU down the same ones.
@@ -113,26 +130,40 @@ OCEAN_CONFIG = {**BENCH_CONFIG, "ocean": True, "terrain": True,
                 "rasterMaxVisible": 163840 + 2 * 32768}
 DECALS_CONFIG = {**BENCH_CONFIG, "volumetricDecals": True,
                  "meshEncoding": "meshlet"}
+# The bench cap plus the characters' and the sheet's triangles
+# (tests/gltf_fixtures.py: 24,576 a character, 8,192 the sheet).
+CHARACTERS = ((-3.0, 1.6, 3.0), (3.0, 1.6, 3.0), (-3.0, 1.6, -3.0),
+              (3.0, 1.6, -3.0))
+SHEET_AT = (0.0, 0.3, 6.0)
+ANIM_CONFIG = {**BENCH_CONFIG,
+               "rasterMaxVisible": 163840 + len(CHARACTERS) * 24576 + 8192}
+# The bench glTF's camera: in front of the characters, looking at them.
+ANIM_EYE, ANIM_TARGET = (0.0, 5.5, 16.0), (0.0, 1.5, 0.0)
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
               "deferred_post": (POST_CONFIG, ("B1", "B2", "B3", "B4")),
               "fsr2": (FSR2_CONFIG, ("B1", "B2", "B3", "B4")),
               "ocean_ground": (OCEAN_CONFIG, ("B1", "B2", "B3", "B4")),
-              "decals_meshlet": (DECALS_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "decals_meshlet": (DECALS_CONFIG, ("B1", "B2", "B3", "B4")),
+              "gltf_animated": (ANIM_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
-# decal node).  Each runs with materialTileSampler "true", so both
-# devices take the tiled routes.
-CROSS_DEVICE = {name: (name, False) for name in (
+# decal node, on the animated `.scene`).  Each runs with
+# materialTileSampler "true", so both devices take the tiled routes.
+CROSS_DEVICE = {name: (name, False, False) for name in (
     "deferred_hdr", "forward_shadow", "deferred_smaa", "forward_vsm_fxaa",
     "deferred_taa_fog", "deferred_fsr2", "deferred_ssao_ssr",
     "deferred_ocean_ground", "deferred_decals", "deferred_meshlet")}
-CROSS_DEVICE["deferred_decals one decal node"] = ("deferred_decals", True)
+CROSS_DEVICE["deferred_decals one decal node"] = (
+    "deferred_decals", True, False)
+CROSS_DEVICE["deferred_hdr gltf_animated scene"] = (
+    "deferred_hdr", False, True)
 # Decals of the decals_meshlet path: the viewer's table capacity, each
 # box scaled to this share of its distance from the camera.
 DECAL_COUNT, DECAL_SIZE = 16, 0.08
 # At least this share of the frame's pixels changes under the decals, and
-# between the ocean's frames at elapsed times 0 and 5 s.
+# between the ocean's frames at elapsed times 0 and 5 s and the animated
+# scene's at 0 and 1 s.
 MIN_CHANGED_SHARE = 0.001
 # Least-time yardsticks of the bound (H100 SXM, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -285,16 +316,34 @@ def walk_bound(args, out_bytes: int, winner_lanes: int) -> dict:
     return b
 
 
-def make_app(cfg: dict, bench_scene: bool, device: str):
+def make_app(cfg: dict, bench_scene: bool, device: str, scene=None,
+             camera_index: int = -1):
     from granite_tpu_torch.app.scene_viewer import SceneViewerApplication
     with tempfile.NamedTemporaryFile("w", suffix=".json",
                                      delete=False) as f:
         json.dump(cfg, f)
     try:
         return SceneViewerApplication(types.SimpleNamespace(
-            config=f.name, bench_scene=bench_scene), device=device)
+            config=f.name, bench_scene=bench_scene, scene=scene,
+            camera_index=camera_index), device=device)
     finally:
         os.unlink(f.name)
+
+
+def write_animated_scene(directory: str, base_info, characters,
+                         sheet_at, eye, target) -> str:
+    """The `.scene` of the gltf_animated path (and its small
+    cross-device twin): base_info written as base.gltf by the port's
+    exporter with a camera node at eye looking at target, the skinned
+    character at each of `characters` and the morph sheet at sheet_at
+    (tests/gltf_fixtures.py).  -> the .scene path."""
+    from gltf_fixtures import add_camera, write_scene
+    from granite_tpu_torch.scene_export import export_gltf
+    export_gltf(base_info, os.path.join(directory, "base.gltf"))
+    add_camera(os.path.join(directory, "base.gltf"), eye, target)
+    path = os.path.join(directory, "anim.scene")
+    write_scene(path, "base.gltf", characters, sheet_at)
+    return path
 
 
 def probe():
@@ -458,7 +507,7 @@ def b1_sun_args(app, world):
     from granite_tpu_torch.ops import raster_binned as RB
     from granite_tpu_torch.renderer import scene_renderer as SR
     size = int(BENCH_CONFIG["shadowMapResolution"])
-    light_vp, mask = app.sun_shadow_view()
+    light_vp, mask, _dynamic = app.sun_shadow_view()
     setup = SR.shadow_setup(app.packed, world, light_vp, size,
                             torch.as_tensor(mask, device=world.device))
     pk, st, hr, hs = RB.bin_triangles(setup, size, size, span_w=2,
@@ -838,35 +887,53 @@ def decal_check(app) -> dict:
                 meshlet_meshes=app.meshlet_meshes)
 
 
-def ocean_check(app, stats: dict) -> dict:
-    """The ocean path's gates: the raster overflow and clamp counters read
-    0 (the grids fit under the raised rasterMaxVisible), and from the same
-    history two chained frames at elapsed times 0 and 5 s differ while
-    two at 0 s agree."""
+def time_check(app, stats: dict, name: str, t1: float) -> dict:
+    """The gates of a time-varying path: the raster overflow and clamp
+    counters read 0 (its meshes fit under its raised rasterMaxVisible),
+    and from the same history two chained frames at elapsed times 0 and
+    t1 differ while two at 0 agree."""
     import torch
     for pass_name, st in stats.items():
         for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
-            check(st.get(k, 0) == 0,
-                  f"ocean_ground {pass_name} {k} = {st.get(k)}")
+            check(st.get(k, 0) == 0, f"{name} {pass_name} {k} = {st.get(k)}")
     hist = app._history
     frames = {}
-    for label, t0 in (("a", 0.0), ("b", 5.0), ("c", 0.0)):
+    for label, t0 in (("a", 0.0), ("b", t1), ("c", 0.0)):
         app._history = hist
         frames[label] = app.render_frames_chained(FRAME_TIME, t0, 1)
     torch.cuda.synchronize()
     moved = backbuffer_diff(frames["a"], frames["b"])
     still = backbuffer_diff(frames["a"], frames["c"])
-    log(f"ocean: frames at 0 s and 5 s differ in {moved} pixels, two at "
-        f"0 s in {still}")
+    log(f"{name}: frames at 0 s and {t1:g} s differ in {moved} pixels, two "
+        f"at 0 s in {still}")
     check(moved >= int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
           and still * 100 <= moved,
-          f"the ocean does not follow the elapsed time ({moved} vs "
-          f"{still} pixels)")
-    return dict(ocean_moved_pixels=moved, ocean_still_pixels=still)
+          f"{name} does not follow the elapsed time ({moved} vs {still} "
+          "pixels)")
+    return dict(moved_pixels=moved, still_pixels=still)
 
 
-def main_path(name: str) -> dict:
-    """One bench frame path through the kernels; returns its launches."""
+def b1_dynamic_case(app) -> dict:
+    """B1 on the last frame's dynamic casters (the skinned characters,
+    posed by its skin palette), as the shadow pass runs it: their own
+    triangles set up and binned into the 2048^2 sun map."""
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    p = app._param_cache[1]
+    size = int(app.config.shadow_map_resolution)
+    setup = SR.shadow_setup(app.packed, p["external"]["world"],
+                            p["shadow_vp"], size, p["dynamic_shadow_mask"],
+                            p["skin_palette"], p["morph_weights"],
+                            tris=app._dynamic_tris)
+    pk, st, hr, hs = RB.bin_triangles(setup, size, size, span_w=2,
+                                      span_h=8)[:4]
+    return b1_case((st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H,
+                    2, 8), "dynamic casters 2048^2")
+
+
+def main_path(name: str, results: dict) -> dict:
+    """One bench frame path through the kernels; returns its launches
+    (gltf_animated adds its B1 case to results)."""
     import numpy as np
     import torch
     from granite_tpu_torch.kernels import build as K
@@ -874,7 +941,16 @@ def main_path(name: str) -> dict:
     cfg, required = MAIN_PATHS[name]
     K.reset_launch_counts()
     t0 = time.monotonic()
-    app = make_app(cfg, True, "cuda")
+    if name == "gltf_animated":
+        from granite_tpu_torch.app.bench_scene import build_bench_scene
+        files = tempfile.TemporaryDirectory()
+        scene = write_animated_scene(files.name, build_bench_scene(),
+                                     CHARACTERS, SHEET_AT, ANIM_EYE,
+                                     ANIM_TARGET)
+        app = make_app(cfg, False, "cuda", scene=scene, camera_index=0)
+        files.cleanup()
+    else:
+        app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
     if name == "decals_meshlet":
         # the check's frames and re-bake are not set-up: the set-up
@@ -887,6 +963,18 @@ def main_path(name: str) -> dict:
     setup_s = time.monotonic() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # B1's launches in each timed frame: the render graph runs once a
+    # frame, and a wrapper counts its launch on the host as it enqueues
+    b1_frames = []
+    execute = app.graph.execute
+
+    def counted(params, history):
+        n = K.LAUNCHES["B1"]
+        result = execute(params, history)
+        b1_frames.append(K.LAUNCHES["B1"] - n)
+        return result
+
+    app.graph.execute = counted
     t1 = time.monotonic()
     start.record()
     out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, FRAMES,
@@ -896,6 +984,7 @@ def main_path(name: str) -> dict:
     host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
     ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
+    del app.graph.execute
     busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
@@ -913,13 +1002,31 @@ def main_path(name: str) -> dict:
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
     log(f"device ms a frame by range {name} "
         f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
-    log(f"launches {name} {launches}")
+    log(f"launches {name} {launches}; B1 in each of the {FRAMES} timed "
+        f"frames {b1_frames}")
     # max_bin_entries and the overflow/clamp counters: printed, gated only
-    # on the ocean path (the reference clamps and drops the same way; the
-    # port counts)
+    # on the time-varying paths (the reference clamps and drops the same
+    # way; the port counts)
     log(f"raster stats {stats}")
     if name == "ocean_ground":
-        ocean_check(app, stats)
+        time_check(app, stats, "ocean", 5.0)
+    if name == "gltf_animated":
+        check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
+              f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
+        time_check(app, stats, "animation", 1.0)
+        # host side of a frame: pose, palette, culling, params, uploads
+        t = time.monotonic()
+        for i in range(4):
+            app.animation_system.animate(i * FRAME_TIME)
+            app.build_frame_params(FRAME_TIME, i * FRAME_TIME)
+        log(f"gltf_animated: {len(app.info.animations)} animations, "
+            f"{len(app.info.skins)} skins, {app.packed.num_objects} objects,"
+            f" {int(app.packed.indices.shape[0])} triangles; host pose + "
+            f"params {(time.monotonic() - t) * 1e3 / 4:.3f} ms/frame")
+        dyn = b1_dynamic_case(app)
+        results["B1"]["cases"].append(dyn)
+        results["B1"]["max_abs_err"] = max(results["B1"]["max_abs_err"],
+                                           dyn["max_abs_err"])
     check(img.shape == (HEIGHT, WIDTH, 4), f"backbuffer shape {img.shape}")
     check(ok, f"image gate failed: means {means}")
     for k in required:
@@ -932,14 +1039,19 @@ def main_path(name: str) -> dict:
 
 def cross_device() -> None:
     import torch
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
     from golden_utils import CONFIGS, psnr     # numpy only, no jax
-    for name, (golden, decal_node) in CROSS_DEVICE.items():
+    from granite_tpu_torch.app.bench_scene import build_default_test_scene
+    files = tempfile.TemporaryDirectory()
+    scene = write_animated_scene(files.name, build_default_test_scene(),
+                                 [(2.5, 1.2, 2.5)], (-2.5, 0.1, 2.5),
+                                 (7.0, 5.5, 9.0), (0.0, 0.8, 0.0))
+    for name, (golden, decal_node, animated) in CROSS_DEVICE.items():
         cfg = {**CONFIGS[golden], "materialTileSampler": "true"}
         imgs = {}
         for device in ("cuda", "cpu"):
-            app = make_app(cfg, False, device)
+            app = make_app(cfg, False, device,
+                           scene=scene if animated else None,
+                           camera_index=0 if animated else -1)
             if decal_node:
                 # tests/test_decals.py's box over the test scene's floor
                 node = app.scene.create_node(translation=(0, 0, 0),
@@ -956,10 +1068,14 @@ def cross_device() -> None:
         log(f"cross-device {name} 128x72: cuda vs cpu luma PSNR {p:.2f} dB")
         check(p >= PSNR_GATE_DB,
               f"cross-device {name} PSNR {p:.2f} < {PSNR_GATE_DB}")
+    files.cleanup()
 
 
 def main() -> int:
     import torch
+    # golden_utils and gltf_fixtures (numpy and json only) live in tests/
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
     t_start = time.monotonic()
     card, attrs = probe()
     results: dict = {}
@@ -968,7 +1084,7 @@ def main() -> int:
     by_path = {}
     for name in MAIN_PATHS:
         t = time.monotonic()
-        by_path[name] = main_path(name)
+        by_path[name] = main_path(name, results)
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     cross_device()

@@ -1,14 +1,23 @@
-"""Headless runner (port of granite_tpu/app/headless.py, the flags the
-slice needs): --frames --width --height --time-step --warmup-frames
---png-path --stat, plus --device (default cuda; raises without CUDA).
+"""Headless runner (port of granite_tpu/app/headless.py): --frames --width
+--height --time-step --warmup-frames --png-path --png-reference-path
+--stat --video-path --chain --capture-probe, plus --profile and --device
+(default cuda; raises without CUDA).
 
-Frames run back to back with no host readback until the end.  The stat
-JSON keeps the JAX engine's schema (core/stats.StatSink):
-averageFrameTimeUs on the host clock around work that ends in a device
-synchronize; gpu, the card's name or "cpu"; performanceCounters
-compileTimeMs (warm-up frames, the kernel build included) and
-wallTimePerFrameUs; passTimesUs, each `pass:<name>` range's device time
-a frame (CPU time on the CPU) when --profile traces the frames, else {}.
+The frames go through the same calls as the JAX runner's: with
+--capture-probe the environment probe first, then the warm-up frames at
+elapsed time 0, then the timed frames at FrameTimer's frame and elapsed
+times ((i + 1) x step under --time-step, the wall clock without it), or
+with --chain one render_frames_chained(step, 0, frames) to warm up and
+one render_frames_chained(step, step, frames) timed.  The timed frames
+run back to back with no host readback until the end.  The stat JSON
+keeps the JAX engine's schema (core/stats.StatSink): averageFrameTimeUs
+on the host clock around work that ends in a device synchronize; gpu,
+the card's name or "cpu"; performanceCounters compileTimeMs (warm-up
+frames, the kernel build included), wallTimePerFrameUs and, with
+--png-reference-path, the PSNR counters of utils/image_compare;
+passTimesUs, each `pass:<name>` range's device time a frame (CPU time on
+the CPU) when --profile traces the frames, else {}.  A reference image
+of another size exits 1; --chain with --video-path is refused (exit 2).
 """
 
 from __future__ import annotations
@@ -17,12 +26,17 @@ import argparse
 import contextlib
 import time
 
-import numpy as np
 import torch
 
 from ..core.stats import StatSink
-from ..utils.image_io import save_png
-from ..utils.logging import LOGI
+from ..utils.image_compare import psnr_channels
+from ..utils.image_io import load_image, save_png
+from ..utils.logging import LOGE, LOGI
+from ..utils.timer import FrameTimer
+from .video_sink import VideoSink
+
+# Face size and equirect height of --capture-probe (the JAX runner's).
+PROBE_FACE_SIZE, PROBE_HEIGHT = 128, 64
 
 
 def add_headless_cli(parser: argparse.ArgumentParser) -> None:
@@ -37,8 +51,24 @@ def add_headless_cli(parser: argparse.ArgumentParser) -> None:
                         dest="warmup_frames")
     parser.add_argument("--png-path", type=str, default=None,
                         dest="png_path")
+    parser.add_argument("--png-reference-path", type=str, default=None,
+                        dest="png_reference_path",
+                        help="compare the last frame with this image; "
+                             "PSNR counters go into the stat JSON")
     parser.add_argument("--stat", type=str, default=None,
                         help="write stat JSON to this path")
+    parser.add_argument("--video-path", type=str, default=None,
+                        dest="video_path",
+                        help="encode every timed frame (ffmpeg or a PNG "
+                             "sequence)")
+    parser.add_argument("--chain", action="store_true",
+                        help="time the frames through "
+                             "render_frames_chained; refused with "
+                             "--video-path")
+    parser.add_argument("--capture-probe", type=str, default=None,
+                        dest="capture_probe",
+                        help="render a 6-face environment probe and write "
+                             "an equirect PNG and .npy to this path")
     parser.add_argument("--profile", type=str, default=None,
                         help="trace the timed frames with torch.profiler "
                              "and write the per-pass / per-kernel table "
@@ -70,34 +100,57 @@ def _pass_times_us(prof, device: torch.device, frames: int) -> dict:
 
 
 def run_headless(app, args: argparse.Namespace) -> int:
+    video_path = getattr(args, "video_path", None)
+    use_chain = bool(getattr(args, "chain", False))
+    if use_chain and video_path:
+        LOGE("--chain renders the frames with no readback between them, so "
+             "it cannot encode per-frame video (--video-path)")
+        return 2
     frames = max(args.frames, 1)
     app.swapchain_updated(args.width, args.height)
     device_name = (torch.cuda.get_device_name(app.device)
                    if app.device.type == "cuda" else "cpu")
     stats = StatSink(device_name)
+    timer = FrameTimer()
+    if getattr(args, "capture_probe", None):
+        app.capture_environment_probe(args.capture_probe,
+                                      face_size=PROBE_FACE_SIZE,
+                                      equirect_height=PROBE_HEIGHT)
     step = args.time_step or (1.0 / 60.0)
     t_compile0 = time.perf_counter()
-    for i in range(max(args.warmup_frames, 0)):
-        app.render_frame(step, i * step)
+    if use_chain:
+        app.render_frames_chained(step, 0.0, frames)
+    else:
+        for _ in range(max(args.warmup_frames, 0)):
+            app.render_frame(step, 0.0)
     _sync(app.device)
     stats.counters["compileTimeMs"] = \
         (time.perf_counter() - t_compile0) * 1e3
+    sink = VideoSink(video_path, args.width, args.height, fps=1.0 / step) \
+        if video_path else None
     prof = contextlib.nullcontext()
-    if args.profile:
+    if getattr(args, "profile", None):
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if app.device.type == "cuda" else []))
     with prof:
         t0 = time.perf_counter()
-        out = None
-        for i in range(frames):
-            out = app.render_frame(step, i * step)
+        if use_chain:
+            out = app.render_frames_chained(step, step, frames)
+        else:
+            for _ in range(frames):
+                ft = timer.frame(fixed_step=args.time_step)
+                out = app.render_frame(ft, timer.get_elapsed())
+                if sink is not None:
+                    sink.push_frame(out.cpu().numpy())
         _sync(app.device)
         total_s = time.perf_counter() - t0
+    if sink is not None:
+        sink.close()
     for _ in range(frames):
         stats.add_frame(total_s / frames)
     stats.counters["wallTimePerFrameUs"] = 1e6 * total_s / frames
-    if args.profile:
+    if getattr(args, "profile", None):
         sort = "device_time_total" if app.device.type == "cuda" \
             else "cpu_time_total"
         with open(args.profile, "w") as f:
@@ -107,8 +160,17 @@ def run_headless(app, args: argparse.Namespace) -> int:
             stats.intervals.accumulate(tag, us * 1e-6)
     host = out.cpu().numpy()
     if args.png_path:
-        save_png(args.png_path, np.asarray(host))
+        save_png(args.png_path, host)
         LOGI("Wrote %s", args.png_path)
+    ref_path = getattr(args, "png_reference_path", None)
+    if ref_path:
+        ref = load_image(ref_path)
+        if ref.shape[:2] != host.shape[:2]:
+            LOGE("reference size mismatch: %s vs %s", ref.shape, host.shape)
+            return 1
+        psnr = psnr_channels(host, ref)
+        LOGI("PSNR vs reference: %s", psnr)
+        stats.counters.update(psnr)
     if args.stat:
         stats.write(args.stat)
         LOGI("Wrote %s", args.stat)

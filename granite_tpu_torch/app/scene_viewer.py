@@ -10,7 +10,13 @@ LDR AA tonemap -> ldr -> fxaa|smaa -> sRGB backbuffer.  The frame
 renders at resolutionScale x the display size; FSR2 upscales to display
 size before the HDR chain, otherwise the tonemap resizes and sharpens.
 Temporal AA jitters the camera per frame (TemporalJitter) and the
-surface pass emits motion vectors.  The FFT ocean (ocean-fft pass, its
+surface pass emits motion vectors.  A scene file (.gltf, .glb or a
+.scene composition, scene/scene_loader.py) brings its cameras, skins,
+morph targets and animations: the animation system poses the nodes each
+frame, the frame params carry the skin palette and morph weights (and
+last frame's, for the motion vectors), and the skinned meshes are
+dynamic shadow casters, rasterized by B1 into a sun map every frame and
+composited onto the cached static map.  The FFT ocean (ocean-fft pass, its
 grid displaced at vertex transform by the elapsed time) and the terrain
 join the scene before it is packed; meshEncoding "meshlet" re-encodes the
 static meshes through the MLT2 codec; volumetric decals blend into the
@@ -24,6 +30,8 @@ Run:
   python -m granite_tpu_torch.app.scene_viewer --bench-scene \
       --config cfg.json --width 1920 --height 1080 --frames 12 \
       --device cuda --png-path out.png
+  python -m granite_tpu_torch.app.scene_viewer --scene scene.gltf \
+      --camera-index 0 --config cfg.json --frames 8 --png-path out.png
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ from ..graph.render_graph import (
     AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
 )
 from ..math.frustum import Frustum
-from ..math.muglm import quat_from_axis_angle, quat_rotate
+from ..math.muglm import quat_from_axis_angle, quat_normalize, quat_rotate
+from ..math.transforms import decompose_trs
 from ..ops import hdr as HDR
 from ..ops import taa as TAA
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
@@ -48,7 +57,8 @@ from ..ops.decals import (
 )
 from ..ops.fsr2 import fsr2_jitter_phases, fsr2_upscale
 from ..ops.fxaa import fxaa
-from ..ops.light_shadows import assign_slices, pack_atlas
+from ..ops.light_shadows import FACE_DIRS, FACE_UPS, assign_slices, \
+    pack_atlas
 from ..ops.shadow import (
     directional_shadow_matrix, shadow_uv_transform, vsm_moments,
 )
@@ -67,19 +77,23 @@ from ..renderer.ground import (
 from ..renderer.ocean import Ocean, OceanConfig
 from ..renderer.render_context import RenderContext
 from ..renderer.scene_renderer import (
-    PackedScene, fused_raster_surface, motion_vectors, pack_scene,
-    render_shadow_map, shade_surface_fused, transform_vertices,
-    transparent_composite, world_positions,
+    BLOCK_MORPH_SKIN, BLOCK_SKIN, PackedScene, fused_raster_surface,
+    mesh_instances, motion_vectors, pack_scene, render_shadow_map,
+    shade_surface_fused, transform_vertices, transparent_composite,
+    world_positions,
 )
+from ..scene.animation import AnimationSystem
 from ..scene.camera import FPSCamera
 from ..scene.scene import (
-    RENDERABLE_CASTS_SHADOW, RENDERABLE_OPAQUE, RENDERABLE_TRANSPARENT,
-    Scene,
+    RENDERABLE_CASTS_SHADOW, RENDERABLE_DYNAMIC, RENDERABLE_OPAQUE,
+    RENDERABLE_TRANSPARENT, Scene,
 )
 from ..scene.scene_formats import (
-    ALPHA_MODE_BLEND, LIGHT_POINT, LIGHT_SPOT, MaterialData, NodeData,
-    SceneInfo,
+    ALPHA_MODE_BLEND, LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT,
+    MaterialData, NodeData, SceneInfo,
 )
+from ..scene.scene_loader import SceneLoader
+from ..utils.image_io import save_png
 from ..utils.logging import LOGI, LOGW
 from .headless import headless_main
 
@@ -209,8 +223,8 @@ class ViewerConfig:
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
         far (deferred/forward, HDR, every postAA, fog, SSAO/SSR, render
-        scale, ocean, terrain, volumetric decals, meshlet encoding, the
-        kernel route)."""
+        scale, ocean, terrain, volumetric decals, meshlet encoding,
+        rescaleScene, the kernel route)."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1,),
             "directional_light_cascaded_shadows": (False,),
@@ -222,7 +236,7 @@ class ViewerConfig:
             "mesh_encoding": ("classic", "meshlet"),
             "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
             "post_aa": _POST_AA, "show_ui": (False,),
-            "occlusion_culling": (False,), "rescale_scene": (False,),
+            "occlusion_culling": (False,),
         }
         for name, allowed in need.items():
             if getattr(self, name) not in allowed:
@@ -265,37 +279,47 @@ class SceneViewerApplication:
 
     @staticmethod
     def add_cli(parser) -> None:
+        parser.add_argument("--scene", type=str, default=None,
+                            help="glTF/GLB scene or .scene composition")
         parser.add_argument("--config", type=str, default=None,
                             help="config.json path (reference schema)")
+        parser.add_argument("--camera-index", type=int, default=-1,
+                            dest="camera_index",
+                            help="the scene camera to render through "
+                                 "(-1 frames the scene bounds)")
         parser.add_argument("--bench-scene", action="store_true",
                             dest="bench_scene",
                             help="use the Sponza-class synthetic scene "
                                  "(default: the golden images' test scene)")
 
     def __init__(self, args=None, device="cuda"):
-        """args: namespace with `config` (path or None) and `bench_scene`;
-        device: 'cuda' (raises without a card) or 'cpu'.  Scene files
-        and scene cameras are not part of the port yet: a non-None
-        `scene` or a `camera_index` other than -1 raises
-        NotImplementedError instead of rendering the procedural scene."""
-        if args is not None and getattr(args, "scene", None) is not None:
-            raise NotImplementedError(
-                f"scene={args.scene!r}: loading a scene file is not part "
-                "of the port yet (the bench scene or the procedural test "
-                "scene only)")
-        if args is not None and getattr(args, "camera_index", -1) != -1:
-            raise NotImplementedError(
-                f"camera_index={args.camera_index!r}: scene cameras are "
-                "not part of the port yet (-1 frames the scene bounds)")
+        """args: namespace with `config` (path or None), `bench_scene`,
+        `scene` (a .gltf, .glb or .scene path, or None) and
+        `camera_index` (-1 frames the scene bounds); device: 'cuda'
+        (raises without a card) or 'cpu'.  A camera index past the
+        scene's cameras raises ValueError."""
         self.device = resolve_device(device)
         self.config = (ViewerConfig.from_json(args.config)
                        if args is not None and getattr(args, "config", None)
                        else ViewerConfig())
         self.config.check_slice()
+        scene_path = getattr(args, "scene", None) if args is not None \
+            else None
+        # A scene file's terrain settings (none: the defaults).
+        self._terrain_cfg: dict = {}
         if args is not None and getattr(args, "bench_scene", False):
             from .bench_scene import build_bench_scene
             info = build_bench_scene()
             LOGI("Using Sponza-class bench scene")
+        elif scene_path:
+            loader = SceneLoader(scene_path)
+            info = loader.get_scene()
+            if loader.ocean_config is not None:
+                self.config.ocean = True
+            if loader.terrain_config is not None:
+                self.config.terrain = True
+                self._terrain_cfg = loader.terrain_config
+            LOGI("Loaded scene %s", scene_path)
         else:
             from .bench_scene import build_default_test_scene
             info = build_default_test_scene()
@@ -305,14 +329,13 @@ class SceneViewerApplication:
         self.ground = None
         self._ocean_obj = -1
         self._ground_obj = -1
-        # A scene file's terrain settings (scene loading is not ported:
-        # always the defaults, as the JAX viewer without a scene file).
-        self._terrain_cfg: dict = {}
         if self.config.ocean:
             self._add_ocean(info)
         if self.config.terrain:
             self._add_terrain(info)
         self.scene = self._build_runtime_scene(info)
+        if self.config.rescale_scene:
+            self._rescale_scene()
         self.meshlet_meshes = 0
         if self.config.mesh_encoding == "meshlet":
             # Static meshes route through the MLT2 meshlet streams
@@ -326,6 +349,18 @@ class SceneViewerApplication:
             LOGI("meshEncoding=meshlet: %d/%d meshes re-encoded",
                  self.meshlet_meshes, len(info.meshes))
         self.packed: PackedScene = pack_scene(info, device=self.device)
+        # The skinned meshes cast their sun shadows per frame: B1 sets up
+        # and bins their triangles only.
+        dynamic = (self.scene.r_flags & RENDERABLE_DYNAMIC) != 0
+        self._has_dynamic_casters = bool(dynamic.any())
+        self._dynamic_tris = torch.nonzero(
+            self._t(dynamic, torch.bool)[self.packed.tri_object.long()]
+        )[:, 0] if self._has_dynamic_casters else None
+        self.animation_system = AnimationSystem(self.scene)
+        for anim in info.animations:
+            self.animation_system.start_animation(anim)
+        if info.animations:
+            LOGI("Playing %d animations", len(info.animations))
         v_node = self.packed.v_node
         if self.ocean is not None:
             # per-vertex mask of the ocean grid; water casts no shadow
@@ -343,7 +378,8 @@ class SceneViewerApplication:
         # the built-in decal image.  Read at swapchain_updated.
         self.decal_images = None
         self._decal_strips = None
-        self.camera = self._frame_scene_camera()
+        self.camera = self._setup_camera(
+            getattr(args, "camera_index", -1) if args is not None else -1)
         self.context = RenderContext()
         self.graph = RenderGraph()
         self._history = None
@@ -353,6 +389,12 @@ class SceneViewerApplication:
         self._sun_dir = np.array([0.35, 0.9, 0.25], np.float32)
         self._sun_dir /= np.linalg.norm(self._sun_dir)
         self._sun_color = np.array([3.0, 2.8, 2.5], np.float32)
+        for nd in info.nodes:
+            # a directional light of the scene gives the sun its colour
+            if nd.light is not None and \
+                    info.lights[nd.light].type == LIGHT_DIRECTIONAL:
+                light = info.lights[nd.light]
+                self._sun_color = light.color * light.intensity
         sky = dict(sun_dir=tuple(float(v) for v in self._sun_dir),
                    sun_color=tuple(float(v) for v in self._sun_color))
         self.environment = Environment(procedural_sky_equirect(128, **sky),
@@ -413,6 +455,12 @@ class SceneViewerApplication:
             self._ground_node = node
 
     def _build_runtime_scene(self, info: SceneInfo) -> Scene:
+        """Nodes and renderables for culling.  The renderables go in
+        pack_scene's object order (its block key, plain | morph |
+        morph+skin | skin), so a renderable's row is its packed object;
+        the skinned ones are the dynamic shadow casters.  (The JAX viewer
+        sorts on "skinned" alone, which parts from pack_scene's order
+        when a morph-only mesh comes before a plain one.)"""
         s = Scene()
         parent = {c: i for i, nd in enumerate(info.nodes)
                   for c in nd.children}
@@ -420,25 +468,55 @@ class SceneViewerApplication:
             s.create_node(parent=parent.get(i, -1),
                           translation=nd.translation, rotation=nd.rotation,
                           scale=nd.scale)
-        # renderable order must match pack_scene's instance order
-        for i, nd in enumerate(info.nodes):
-            for mesh_idx in nd.meshes:
-                md = info.meshes[mesh_idx]
-                mat = info.materials[md.material] if (
-                    0 <= md.material < len(info.materials)) else None
-                transparent = mat is not None and \
-                    mat.alpha_mode == ALPHA_MODE_BLEND
-                flags = RENDERABLE_CASTS_SHADOW | (
-                    RENDERABLE_TRANSPARENT if transparent
-                    else RENDERABLE_OPAQUE)
-                s.add_renderable(i, mesh_idx, flags, md.aabb_min,
-                                 md.aabb_max)
+        for block, i, mesh_idx in mesh_instances(info):
+            md = info.meshes[mesh_idx]
+            mat = info.materials[md.material] if (
+                0 <= md.material < len(info.materials)) else None
+            transparent = mat is not None and \
+                mat.alpha_mode == ALPHA_MODE_BLEND
+            flags = RENDERABLE_CASTS_SHADOW | (
+                RENDERABLE_TRANSPARENT if transparent else RENDERABLE_OPAQUE)
+            if block in (BLOCK_MORPH_SKIN, BLOCK_SKIN):
+                flags |= RENDERABLE_DYNAMIC
+            s.add_renderable(i, mesh_idx, flags, md.aabb_min, md.aabb_max)
         s.update_transform_tree()
         return s
 
-    def _frame_scene_camera(self) -> FPSCamera:
-        """Camera looking at the scene bounds from above, infinite far."""
+    def _rescale_scene(self) -> None:
+        """rescaleScene (rescale_scene(10.0f), scene_viewer_application.cpp
+        :491): scale the roots so the scene's AABB radius becomes 10."""
+        self.scene.update_transform_tree()
+        mn = self.scene.r_world_min.min(axis=0)
+        mx = self.scene.r_world_max.max(axis=0)
+        radius = max(0.5 * float(np.linalg.norm(mx - mn)), 1e-6)
+        factor = 10.0 / radius
+        for r in self.info.roots:
+            self.scene.scale[r] = self.scene.scale[r] * factor
+        self.scene.update_transform_tree()
+        LOGI("rescaleScene: radius %.3f -> 10 (x%.3f)", radius, factor)
+
+    def _setup_camera(self, camera_index: int) -> FPSCamera:
+        """The scene camera `camera_index` (its fovy, depth range,
+        orthographic extent and node's world transform), or with -1 a
+        camera looking at the scene bounds from above, infinite far."""
         cam = FPSCamera()
+        if camera_index >= len(self.info.cameras):
+            raise ValueError(
+                f"camera_index={camera_index}: the scene has "
+                f"{len(self.info.cameras)} cameras")
+        if camera_index >= 0:
+            cd = self.info.cameras[camera_index]
+            cam.set_fovy(cd.fovy)
+            cam.set_depth_range(cd.znear, cd.zfar)
+            if cd.ortho:
+                cam.set_ortho(True, cd.xmag, cd.ymag)
+            if cd.node is not None:
+                w = self.scene.world[cd.node]
+                cam.position = w[:3, 3].copy()
+                _t, r, _s = decompose_trs(w)
+                cam.rotation = quat_normalize(
+                    np.array([r[0], -r[1], -r[2], -r[3]], np.float32))
+            return cam
         self.scene.update_cached_transforms()
         mn = self.scene.r_world_min.min(axis=0)
         mx = self.scene.r_world_max.max(axis=0)
@@ -695,11 +773,26 @@ class SceneViewerApplication:
 
     # -- passes -----------------------------------------------------------------
     def _shadow_pass(self, ctx):
-        """The cached static sun map, or under VSM its baked moments."""
-        key = "static_vsm_moments" \
-            if self.config.directional_light_shadows_vsm \
-            else "static_shadow_depth"
-        return {"shadow-depth": ctx.params[key]}
+        """The cached static sun map, or under VSM its baked moments.
+        With dynamic casters, B1 rasterizes the visible ones (posed by
+        this frame's skin palette and morph weights) into a map of their
+        own each frame, composited onto the static map with max (reverse
+        Z: the greater depth is the closer); VSM then blurs the moments
+        of the composite each frame."""
+        p = ctx.params
+        vsm = self.config.directional_light_shadows_vsm
+        if not self._has_dynamic_casters:
+            return {"shadow-depth": p["static_vsm_moments"] if vsm
+                    else p["static_shadow_depth"]}
+        dyn, stats = render_shadow_map(
+            self.packed, ctx.input("world"), p["shadow_vp"],
+            int(self.config.shadow_map_resolution),
+            p["dynamic_shadow_mask"], skin_palette=p.get("skin_palette"),
+            morph_weights=p.get("morph_weights"), with_stats=True,
+            tris=self._dynamic_tris)
+        self.raster_stats["shadow-dynamic"] = stats
+        depth = torch.maximum(p["static_shadow_depth"], dyn)
+        return {"shadow-depth": vsm_moments(depth) if vsm else depth}
 
     def _transform(self, ctx):
         """Vertex transform with the ocean's and the LOD terrain's
@@ -722,7 +815,10 @@ class SceneViewerApplication:
                 return pos, nrm
         return transform_vertices(self.packed, ctx.input("world"),
                                   ctx.input("normal_mats"),
-                                  p["view_proj"], displace_fn=displace_fn)
+                                  p["view_proj"],
+                                  skin_palette=p.get("skin_palette"),
+                                  morph_weights=p.get("morph_weights"),
+                                  displace_fn=displace_fn)
 
     def _resolved_max_visible(self):
         mv = self.config.raster_max_visible
@@ -733,9 +829,12 @@ class SceneViewerApplication:
         queue -> (surf, depth)."""
         clip, wpos, wnrm, wtan = xf
         # Under TAA the resolve also carries each surface's last-frame
-        # world position (B2's PLANE_PREV) for the motion vectors.
-        prev_wpos = world_positions(self.packed, ctx.input("prev_world")) \
-            if self._use_taa else None
+        # world position (B2's PLANE_PREV: last frame's node transforms,
+        # skin palette and morph weights) for the motion vectors.
+        p = ctx.params
+        prev_wpos = world_positions(
+            self.packed, ctx.input("prev_world"), p.get("prev_skin_palette"),
+            p.get("prev_morph_weights")) if self._use_taa else None
         surf, depth, stats = fused_raster_surface(
             self.packed, clip, ctx.params["object_mask"], wpos, wnrm, wtan,
             self._rw, self._rh, lod_bias=self.config.lod_bias,
@@ -1018,7 +1117,9 @@ class SceneViewerApplication:
         infos, (vps, slice_np, kind_np), views = found
         size = int(self.config.clustered_lights_shadow_resolution)
         world = self._t(self.scene.world[:self.scene.num_nodes])
-        slices = [render_shadow_map(self.packed, world, vp, size, mask)
+        palette = self._skin_palette()
+        slices = [render_shadow_map(self.packed, world, vp, size, mask,
+                                    skin_palette=palette)
                   for vp, mask in views]
         self._cluster_shadow = {
             "atlas_flat": pack_atlas(torch.stack(slices)),
@@ -1049,22 +1150,55 @@ class SceneViewerApplication:
                            np.asarray(spot), capacity=cap,
                            device=self.device)
 
+    def _skin_palette(self):
+        """This pose's joint matrices, world[joint] @ inverse_bind of
+        every skin, concatenated (SkinnedMesh::get_world_transforms), on
+        the device; None without skins."""
+        if not self.info.skins:
+            return None
+        mats = [np.matmul(self.scene.world[sk.joints], sk.inverse_bind)
+                for sk in self.info.skins]
+        return self._t(np.concatenate(mats).astype(np.float32))
+
+    def _morph_weights(self):
+        """This frame's (instances, targets) morph weights of the packed
+        morph instances: the animation's weights channel where it has
+        written one, else the node's or mesh's defaults; None without
+        morph targets."""
+        if self.packed.morph_deltas is None:
+            return None
+        defaults = self.packed.morph_default_weights
+        mt = defaults.shape[1]
+        rows = []
+        for i, node in enumerate(self.packed.morph_nodes):
+            w = self.scene.node_morph_weights.get(int(node))
+            if w is None:
+                rows.append(defaults[i])
+            else:
+                row = np.zeros(mt, np.float32)
+                row[:min(len(w), mt)] = w[:mt]
+                rows.append(row)
+        return self._t(np.stack(rows))
+
     # -- frame ------------------------------------------------------------------
     def sun_shadow_view(self):
-        """(light view-proj fitted to the scene bounds, static casters
-        inside it as an (objects,) bool mask).  The ocean and the LOD
-        ground cast no sun shadow."""
+        """(light view-proj fitted to the scene bounds, the static and the
+        dynamic casters inside it as (objects,) bool masks).  The ocean
+        and the LOD ground cast no sun shadow."""
         scene = self.scene
         mn = scene.r_world_min.min(axis=0)
         mx = scene.r_world_max.max(axis=0)
         light_vp = directional_shadow_matrix(self._sun_dir, mn, mx)
-        mask = np.zeros(self.packed.num_objects, bool)
-        mask[scene.gather_visible_static_shadow_renderables(
-            Frustum(light_vp))] = True
+        frustum = Frustum(light_vp)
+        static = np.zeros(self.packed.num_objects, bool)
+        static[scene.gather_visible_static_shadow_renderables(frustum)] = True
+        dynamic = np.zeros(self.packed.num_objects, bool)
+        dynamic[scene.gather_visible_dynamic_shadow_renderables(
+            frustum)] = True
         for obj in (self._ocean_obj, self._ground_obj):
             if obj >= 0:
-                mask[obj] = False
-        return light_vp, mask
+                static[obj] = dynamic[obj] = False
+        return light_vp, static, dynamic
 
     def _view_params(self, ctx: RenderContext, lights) -> dict:
         out = {"view_proj": self._t(ctx.view_projection),
@@ -1093,10 +1227,12 @@ class SceneViewerApplication:
     def build_frame_params(self, frame_time: float,
                            elapsed_time: float = 0.0) -> dict:
         """Host-side frame prep: culling, shadow matrices, the cached
-        static sun shadow map (kernel B1), light binning, the visible
-        decals, uploads.  Under TAA it steps the jitter first: the frame
-        renders with the jittered view-proj (culling keeps the
-        un-jittered frustum).  elapsed_time drives the ocean."""
+        static sun shadow map (kernel B1), the skin palette and morph
+        weights of the current pose, light binning, the visible decals,
+        uploads.  Under TAA it steps the jitter first: the frame renders
+        with the jittered view-proj (culling keeps the un-jittered
+        frustum).  elapsed_time drives the ocean (the animation system
+        poses the scene before this is called)."""
         scene = self.scene
         scene.update_transform_tree()
         self.context.set_camera(self.camera)
@@ -1113,14 +1249,18 @@ class SceneViewerApplication:
             transparent_mask[scene.gather_visible_transparent_renderables(
                 self.context.frustum)] = True
             object_mask &= ~transparent_mask
-        light_vp, static_mask = self.sun_shadow_view()
+        light_vp, static_mask, dynamic_mask = self.sun_shadow_view()
         n = scene.num_nodes
         world = scene.world[:n]
         nm = np.linalg.inv(world[:, :3, :3]).transpose(0, 2, 1).astype(
             np.float32)
         world_t = self._t(world)
+        skin_palette = self._skin_palette()
+        morph_weights = self._morph_weights()
         params = {
             "external": {"world": world_t, "normal_mats": self._t(nm)},
+            "skin_palette": skin_palette,
+            "morph_weights": morph_weights,
             "sun_dir": self._t(self._sun_dir),
             "sun_color": self._t(self._sun_color),
             "object_mask": self._t(object_mask, torch.bool),
@@ -1129,9 +1269,10 @@ class SceneViewerApplication:
             "frame_time": float(frame_time),
         }
         if self.config.directional_light_shadows:
-            # Static casters only (the slice has no dynamic casters): the
-            # map re-renders when the light frustum, caster set or caster
-            # transforms change, as in the reference viewer.
+            # The static casters' map re-renders when the light frustum,
+            # the caster set or their transforms change, as in the
+            # reference viewer; the dynamic casters join it per frame in
+            # the shadow pass.
             static_nodes = np.unique(self.packed.obj_node[static_mask])
             size = int(self.config.shadow_map_resolution)
             key = (light_vp.tobytes(), static_mask.tobytes(),
@@ -1142,14 +1283,19 @@ class SceneViewerApplication:
                     self.packed, world_t, light_vp, size,
                     self._t(static_mask, torch.bool), with_stats=True)
                 self.raster_stats["shadow"] = stats
-                # VSM: blur the moments once with the depth, under the
-                # same key (the static casters are the only casters).
+                # VSM without dynamic casters: blur the moments once with
+                # the depth, under the same key.
                 moments = vsm_moments(depth) \
-                    if self.config.directional_light_shadows_vsm else None
+                    if self.config.directional_light_shadows_vsm \
+                    and not self._has_dynamic_casters else None
                 self._static_shadow_cache = (key, depth, moments)
             params["static_shadow_depth"] = self._static_shadow_cache[1]
-            if self.config.directional_light_shadows_vsm:
+            if self._static_shadow_cache[2] is not None:
                 params["static_vsm_moments"] = self._static_shadow_cache[2]
+            if self._has_dynamic_casters:
+                params["shadow_vp"] = light_vp
+                params["dynamic_shadow_mask"] = self._t(dynamic_mask,
+                                                        torch.bool)
         if self.ocean is not None:
             params["ocean_time"] = self._ocean_time(elapsed_time)
         if self._has_decals:
@@ -1167,15 +1313,23 @@ class SceneViewerApplication:
             params["lights"] = lights
         params.update(self._view_params(self.context, lights))
         if self._jitter is not None:
-            # Last frame's node transforms for the motion vectors (the
-            # first frame reprojects onto itself), the previous
-            # un-jittered view-proj, and this frame's jitter for FSR2.
-            prev_world = world if self._mv_prev is None else self._mv_prev
-            params["external"]["prev_world"] = self._t(prev_world)
+            # Last frame's node transforms, skin palette and morph
+            # weights for the motion vectors (the first frame reprojects
+            # onto itself), the previous un-jittered view-proj, and this
+            # frame's jitter for FSR2.
+            prev_world, prev_palette, prev_morph = \
+                (world_t, skin_palette, morph_weights) \
+                if self._mv_prev is None else self._mv_prev
+            params["external"]["prev_world"] = prev_world
+            params["prev_skin_palette"] = prev_palette
+            params["prev_morph_weights"] = prev_morph
             params["prev_vp_uv"] = self._t(
                 TAA.UV_REMAP @ self._jitter._saved_nojitter[0])
             params["taa_reproj"] = self._t(taa_reproj)
-            self._mv_prev = world.copy()
+            # (a copy: on the CPU world_t shares the scene's node array,
+            # which the next frame's transform update overwrites)
+            self._mv_prev = (self._t(world.copy()), skin_palette,
+                             morph_weights)
             if self._use_fsr2:
                 params["fsr2_jitter"] = self._t(
                     self._jitter.last_jitter_uv())
@@ -1184,12 +1338,15 @@ class SceneViewerApplication:
 
     def render_frame(self, frame_time: float, elapsed_time: float):
         """One frame -> (H, W, 4) uint8 backbuffer on the app's device.
-        A still camera reuses the last frame's params, except under TAA,
-        where every frame steps the jitter, and while an ocean exists,
-        whose phase follows elapsed_time."""
+        The animation system poses the scene at elapsed_time first.  A
+        still camera reuses the last frame's params, except under TAA,
+        where every frame steps the jitter, and while animations play or
+        an ocean exists, whose pose and phase follow elapsed_time."""
+        self.animation_system.animate(elapsed_time)
         cached = self._param_cache
         if cached is not None and self._jitter is None \
                 and self.ocean is None \
+                and not self.animation_system.states \
                 and cached[0] == self._frame_sig(frame_time):
             params = cached[1]
         else:
@@ -1201,14 +1358,17 @@ class SceneViewerApplication:
                               camera_orbit: float = 0.0):
         """n frames in a Python loop with no host readback; returns the
         last backbuffer on the device.  camera_orbit > 0 yaws the camera
-        by that many radians per frame (view params and light bins per
-        frame; culling masks stay at frame 0's, as in the reference's
-        chained bench).  Under TAA the camera stays still and
-        camera_orbit is ignored, as in the reference: each frame takes
-        its own jittered view-proj (and FSR2 jitter) from the host-side
-        jitter sequence, the rest of frame 0's params stay.  With an
-        ocean, frame i also takes the ocean time of t0 + i * frame_time
-        (a per-frame bank entry)."""
+        by that many radians per frame.  A static scene keeps frame 0's
+        params but the view params and light bins (culling masks stay at
+        frame 0's, as in the reference's chained bench); under TAA the
+        camera stays still and camera_orbit is ignored, as in the
+        reference: each frame takes its own jittered view-proj (and FSR2
+        jitter) from the host-side jitter sequence.  A time-varying scene
+        (animations or an ocean) poses and rebuilds every frame's params
+        at t0 + i * frame_time, the orbit included, as the reference's
+        time-varying chain does."""
+        if self.animation_system.states or self.ocean is not None:
+            return self._chain_time_varying(frame_time, t0, n, camera_orbit)
         cached = self._param_cache
         if cached is None or cached[0] != self._frame_sig(frame_time):
             self.build_frame_params(frame_time, t0)
@@ -1225,14 +1385,47 @@ class SceneViewerApplication:
                 self._orbit_cache = (okey, self._orbit_banks(
                     params, n, camera_orbit))
             banks = self._orbit_cache[1]
-        if self.ocean is not None:
-            banks = [{**bank, "ocean_time": self._ocean_time(
-                t0 + i * frame_time)} for i, bank in enumerate(banks)]
         out = None
         for bank in banks:
             out, self._history = self.graph.execute({**params, **bank},
                                                     self._history)
         return out
+
+    def _chain_time_varying(self, frame_time: float, t0: float, n: int,
+                            camera_orbit: float):
+        """The eager counterpart of the reference's time-varying chain:
+        frame i animates to t0 + i * frame_time and builds its params
+        (skin palette, morph weights, world matrices, culling, light
+        bins, jitter) exactly as render_frame would."""
+        out = None
+        for i in self._orbit(n, camera_orbit):
+            et = t0 + i * frame_time
+            self.animation_system.animate(et)
+            params = self.build_frame_params(frame_time, et)
+            out, self._history = self.graph.execute(params, self._history)
+        return out
+
+    def _orbit(self, n: int, camera_orbit: float):
+        """Yields 0 .. n-1 with the camera yawed i * camera_orbit radians
+        about +y from its pose (left alone when camera_orbit is 0), and
+        puts the pose back at the end."""
+        saved_pos = self.camera.position.copy()
+        saved_rot = self.camera.rotation.copy()
+        conj = np.array([saved_rot[0], -saved_rot[1], -saved_rot[2],
+                         -saved_rot[3]])
+        try:
+            for i in range(n):
+                if camera_orbit != 0.0:
+                    yaw = quat_from_axis_angle([0.0, 1.0, 0.0],
+                                               i * camera_orbit)
+                    front = quat_rotate(yaw, quat_rotate(conj,
+                                                         [0.0, 0.0, -1.0]))
+                    self.camera.position = saved_pos
+                    self.camera.look_at(saved_pos, saved_pos + front)
+                yield i
+        finally:
+            self.camera.position = saved_pos
+            self.camera.rotation = saved_rot
 
     def _jitter_banks(self, n: int) -> list:
         """Per-frame jittered view-proj (and FSR2 jitter) of a still
@@ -1252,31 +1445,85 @@ class SceneViewerApplication:
 
     def _orbit_banks(self, params: dict, n: int, camera_orbit: float):
         """Per-frame view params + light bins for the orbiting camera."""
-        saved_pos = self.camera.position.copy()
-        saved_rot = self.camera.rotation.copy()
-        conj = np.array([saved_rot[0], -saved_rot[1], -saved_rot[2],
-                         -saved_rot[3]])
         banks = []
-        for i in range(n):
+        for _ in self._orbit(n, camera_orbit):
             if camera_orbit == 0.0:
                 banks.append({})
                 continue
-            yaw = quat_from_axis_angle([0.0, 1.0, 0.0], i * camera_orbit)
-            front = quat_rotate(yaw, quat_rotate(conj, [0.0, 0.0, -1.0]))
-            self.camera.position = saved_pos
-            self.camera.look_at(saved_pos, saved_pos + front)
             ctx = RenderContext()
             ctx.set_camera(self.camera)
             banks.append(self._view_params(ctx, params.get("lights")))
-        self.camera.position = saved_pos
-        self.camera.rotation = saved_rot
         return banks
 
     def frame_stats(self) -> dict:
-        """Raster counters of the last G-buffer pass and static shadow
-        map as ints (syncs the device)."""
+        """Raster counters of the last G-buffer pass, static shadow map
+        and dynamic casters' shadow map as ints (syncs the device)."""
         return {pass_name: {k: int(v) for k, v in stats.items()}
                 for pass_name, stats in self.raster_stats.items()}
+
+    def capture_environment_probe(self, path: str, face_size: int = 512,
+                                  equirect_height: int = 256) -> None:
+        """Environment probe capture (SceneViewerApplication::
+        capture_environment_probe, scene_viewer_application.cpp:641):
+        renders the scene into 6 cube faces from the camera position at
+        face_size^2, assembles an equirect radiance map of
+        (equirect_height, 2 equirect_height) and writes `path` (PNG
+        preview) and `path`.npy (linear float32).  The viewer's size and
+        camera are put back afterwards."""
+        saved = (self.camera.position.copy(), self.camera.rotation.copy(),
+                 self.camera.fovy, self.camera.aspect)
+        old_size = (self.width, self.height)
+        self.swapchain_updated(face_size, face_size)
+        self.camera.set_fovy(np.pi / 2)
+        self.camera.set_aspect(1.0)
+        faces = []
+        for f in range(6):
+            self.camera.look_at(saved[0], saved[0] + FACE_DIRS[f],
+                                FACE_UPS[f])
+            out = self.render_frame(1 / 60, 0.0)
+            faces.append(out.cpu().numpy()[..., :3].astype(np.float32)
+                         / 255.0)
+        # cube -> equirect (convert_cube_to_environment analogue)
+        h = equirect_height
+        w = 2 * h
+        v = (np.arange(h) + 0.5) / h
+        u = (np.arange(w) + 0.5) / w
+        theta = v * np.pi
+        phi = u * 2 * np.pi
+        st = np.sin(theta)[:, None]
+        y = np.broadcast_to(np.cos(theta)[:, None], (h, w))
+        x = st * np.cos(phi)[None, :]
+        z = st * np.sin(phi)[None, :]
+        d = np.stack([x, y, z], -1)
+        ax = np.abs(d)
+        face_id = np.where((ax[..., 0] >= ax[..., 1])
+                           & (ax[..., 0] >= ax[..., 2]),
+                           np.where(d[..., 0] >= 0, 0, 1),
+                           np.where(ax[..., 1] >= ax[..., 2],
+                                    np.where(d[..., 1] >= 0, 2, 3),
+                                    np.where(d[..., 2] >= 0, 4, 5)))
+        out_img = np.zeros((h, w, 3), np.float32)
+        for f in range(6):
+            m = face_id == f
+            fwd = FACE_DIRS[f]
+            up = FACE_UPS[f]
+            right = np.cross(fwd, up)
+            dd = d[m]
+            zf = dd @ fwd
+            uf = (dd @ right) / np.maximum(np.abs(zf), 1e-6)
+            vf = (dd @ up) / np.maximum(np.abs(zf), 1e-6)
+            px = np.clip(((uf * 0.5 + 0.5) * face_size).astype(int), 0,
+                         face_size - 1)
+            py = np.clip(((-vf * 0.5 + 0.5) * face_size).astype(int), 0,
+                         face_size - 1)
+            out_img[m] = faces[f][py, px]
+        np.save(path + ".npy", out_img)
+        save_png(path, np.clip(out_img, 0, 1))
+        LOGI("Captured environment probe -> %s (+.npy HDR)", path)
+        self.camera.position, self.camera.rotation = saved[0], saved[1]
+        self.camera.set_fovy(saved[2])
+        self.camera.set_aspect(saved[3])
+        self.swapchain_updated(*old_size)
 
 
 def main(argv=None) -> int:

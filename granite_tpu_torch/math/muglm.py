@@ -103,6 +103,20 @@ def quat_rotate(q, v) -> np.ndarray:
         + 2.0 * w * np.cross(u, v)
 
 
+def quat_slerp(a, b, t: float) -> np.ndarray:
+    a = _f32(a)
+    b = _f32(b)
+    d = float(np.dot(a, b))
+    if d < 0.0:
+        b = -b
+        d = -d
+    if d > 0.9995:
+        return quat_normalize(a + t * (b - a))
+    theta = np.arccos(np.clip(d, -1.0, 1.0))
+    return _f32((np.sin((1 - t) * theta) * a + np.sin(t * theta) * b)
+                / np.sin(theta))
+
+
 def mat3_cast(q) -> np.ndarray:
     """Quaternion to rotation matrix (muglm.cpp:30-57)."""
     w, x, y, z = quat_normalize(q)

@@ -1,9 +1,12 @@
-"""Batched TRS composition (copy of granite_tpu/math/transforms.py
-compose_trs_batch; reference: math/transforms.{hpp,cpp})."""
+"""Batched TRS composition and decomposition (copy of
+granite_tpu/math/transforms.py compose_trs_batch and decompose_trs;
+reference: math/transforms.{hpp,cpp})."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from .muglm import _quat_from_mat3, quat_normalize
 
 
 def compose_trs_batch(t: np.ndarray, r: np.ndarray, s: np.ndarray) -> np.ndarray:
@@ -28,3 +31,15 @@ def compose_trs_batch(t: np.ndarray, r: np.ndarray, s: np.ndarray) -> np.ndarray
     m[:, :3, 3] = t
     m[:, 3, 3] = 1.0
     return m
+
+
+def decompose_trs(m: np.ndarray):
+    """Matrix -> (translation, quat wxyz, scale); assumes no shear."""
+    t = m[:3, 3].copy()
+    basis = m[:3, :3]
+    s = np.linalg.norm(basis, axis=0)
+    if np.linalg.det(basis) < 0:
+        s[0] = -s[0]
+    rot = basis / s[None, :]
+    return t.astype(np.float32), quat_normalize(_quat_from_mat3(rot)), \
+        s.astype(np.float32)

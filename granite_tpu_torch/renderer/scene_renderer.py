@@ -123,6 +123,28 @@ def pack_material_channels(images_rgba: list) -> np.ndarray:
                            normal[..., 0:3], emissive[..., 0:3]], axis=-1)
 
 
+BLOCK_PLAIN, BLOCK_MORPH, BLOCK_MORPH_SKIN, BLOCK_SKIN = range(4)
+
+
+def mesh_instances(info: SceneInfo) -> list:
+    """Every (block, node, mesh) instance of the scene in pack_scene's
+    object order: node order within the blocks plain | morph | morph+skin
+    | skin (a stable sort on the block).  The viewer registers its
+    renderables in this order, so a renderable's row is its object id."""
+    out = []
+    for node_idx, nd in enumerate(info.nodes):
+        for mesh_idx in nd.meshes:
+            md = info.meshes[mesh_idx]
+            skinned = nd.skin is not None and md.joints is not None
+            morphed = md.morph_position_deltas is not None
+            block = (BLOCK_MORPH if morphed and not skinned else
+                     BLOCK_MORPH_SKIN if morphed and skinned else
+                     BLOCK_SKIN if skinned else BLOCK_PLAIN)
+            out.append((block, node_idx, mesh_idx))
+    out.sort(key=lambda x: x[0])
+    return out
+
+
 def pack_scene(info: SceneInfo, texture_size: int = 512,
                device="cpu") -> PackedScene:
     """Flatten SceneInfo into global buffers on `device` (instances in
@@ -166,17 +188,9 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
     for sk in info.skins:
         skin_offsets.append(off)
         off += len(sk.joints)
-    instances = []
-    for node_idx, nd in enumerate(info.nodes):
-        for mesh_idx in nd.meshes:
-            md = info.meshes[mesh_idx]
-            skinned = nd.skin is not None and md.joints is not None
-            morphed = md.morph_position_deltas is not None
-            block = (1 if morphed and not skinned else
-                     2 if morphed and skinned else
-                     3 if skinned else 0)
-            instances.append((block, node_idx, md, nd))
-    instances.sort(key=lambda x: x[0])
+    instances = [(block, node_idx, info.meshes[mesh_idx],
+                  info.nodes[node_idx])
+                 for block, node_idx, mesh_idx in mesh_instances(info)]
     mt_max = max((len(md.morph_position_deltas)
                   for _b, _n, md, _nd in instances
                   if md.morph_position_deltas is not None), default=0)
@@ -215,7 +229,7 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
         flags = RENDERABLE_CASTS_SHADOW | (
             RENDERABLE_TRANSPARENT if mode == ALPHA_MODE_BLEND
             else RENDERABLE_OPAQUE)
-        if block in (2, 3):
+        if block in (BLOCK_MORPH_SKIN, BLOCK_SKIN):
             flags |= RENDERABLE_DYNAMIC
             joints_l.append(md.joints + skin_offsets[nd.skin])
             w = md.weights if md.weights is not None else \
@@ -224,7 +238,7 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
                                              1e-9)).astype(np.float32))
         else:
             num_static_verts += v
-        if block in (1, 2):
+        if block in (BLOCK_MORPH, BLOCK_MORPH_SKIN):
             flags |= RENDERABLE_DYNAMIC
             if morph_v0 < 0:
                 morph_v0 = v_off
@@ -387,27 +401,33 @@ def transform_vertices(scene: PackedScene, world, normal_mats, view_proj,
 
 def render_shadow_map(scene: PackedScene, world, light_vp, size: int,
                       object_mask, skin_palette=None, morph_weights=None,
-                      with_stats: bool = False):
+                      with_stats: bool = False, tris=None):
     """Depth-only raster from the light (kernel B1), both faces kept,
-    with the wide 2x8 bin window that ortho shadow views need.
+    with the wide 2x8 bin window that ortho shadow views need.  tris: an
+    index tensor of the only triangles to set up and bin (the depth is
+    the same as with every triangle and the others masked off).
     -> depth (size, size) [, raster stats]."""
     setup = shadow_setup(scene, world, light_vp, size, object_mask,
-                         skin_palette, morph_weights)
+                         skin_palette, morph_weights, tris)
     depth, _tri, stats = rasterize_binned(setup, size, size, span_w=2,
                                           span_h=8, with_stats=True)
     return (depth, stats) if with_stats else depth
 
 
 def shadow_setup(scene: PackedScene, world, light_vp, size: int,
-                 object_mask, skin_palette=None, morph_weights=None):
-    """Triangle setup of a depth-only light view (both faces kept)."""
+                 object_mask, skin_palette=None, morph_weights=None,
+                 tris=None):
+    """Triangle setup of a depth-only light view (both faces kept) of
+    every triangle, or of the triangles `tris` only."""
     world_pos = world_positions(scene, world, skin_palette, morph_weights)
     lv = torch.as_tensor(np.asarray(light_vp, np.float32),
                          device=world_pos.device)
-    setup = R.setup_triangles(project(world_pos, lv), scene.indices, size,
+    indices, tri_object = scene.indices, scene.tri_object
+    if tris is not None:
+        indices, tri_object = indices[tris], tri_object[tris]
+    setup = R.setup_triangles(project(world_pos, lv), indices, size,
                               size, cull_mode=R.CULL_NONE)
-    return setup._replace(
-        valid=setup.valid & object_mask[scene.tri_object.long()])
+    return setup._replace(valid=setup.valid & object_mask[tri_object.long()])
 
 
 # ---------------------------------------------------------------------------

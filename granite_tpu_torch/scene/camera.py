@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..math.muglm import (
-    INFINITE_FAR_PLANE, look_at_quat, mat4_cast, perspective, translate,
+    INFINITE_FAR_PLANE, look_at_quat, mat4_cast, ortho, perspective,
+    translate,
 )
 
 
@@ -29,13 +30,28 @@ class Camera:
         self.znear = znear
         self.zfar = zfar
 
+    def set_fovy(self, fovy: float) -> None:
+        self.fovy = fovy
+
     def set_aspect(self, aspect: float) -> None:
         self.aspect = aspect
+
+    def set_ortho(self, enabled: bool, xmag: float = 1.0,
+                  ymag: float = 1.0) -> None:
+        """Orthographic projection (glTF cameras.orthographic; muglm
+        reverse-Z ortho)."""
+        self.ortho = enabled
+        self.xmag = xmag
+        self.ymag = ymag
 
     def get_view(self) -> np.ndarray:
         return mat4_cast(self.rotation) @ translate(-self.position)
 
     def get_projection(self) -> np.ndarray:
+        if getattr(self, "ortho", False):
+            zf = self.zfar if self.zfar > 0 else 1000.0
+            return ortho(-self.xmag, self.xmag, -self.ymag, self.ymag,
+                         self.znear, zf)
         return perspective(self.fovy, self.aspect, self.znear,
                            self.zfar if self.zfar > 0 else
                            INFINITE_FAR_PLANE)

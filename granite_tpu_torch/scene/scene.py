@@ -4,7 +4,10 @@ granite_tpu/scene/scene.py the port uses; reference: renderer/scene.hpp).
 Nodes are SoA arrays (parent, TRS); world transforms are updated level
 by level with batched matmuls.  Renderables are SoA too (node, mesh,
 flags, local AABB), and every gather query is one vectorized frustum
-cull over all AABBs.  Volumetric decals are unit boxes on nodes
+cull over all AABBs; RENDERABLE_DYNAMIC splits the shadow casters into
+the cached static set and the per-frame dynamic set (skinned meshes).
+Morph-target weights ride node_morph_weights, written by the animation
+system.  Volumetric decals are unit boxes on nodes
 (create_volumetric_decal, gather_visible_volumetric_decals).  The
 original's ECS entity pool, fog regions and diffuse volumes are left
 out: no path of the port reads them, so a decal's entity is its
@@ -56,6 +59,8 @@ class Scene:
         self.r_aabb_max = np.zeros((0, 3), np.float32)
         self.r_world_min = np.zeros((0, 3), np.float32)
         self.r_world_max = np.zeros((0, 3), np.float32)
+        # Morph-target weights per node (sparse: only morphing nodes).
+        self.node_morph_weights: dict[int, np.ndarray] = {}
         # Volumetric decals (scene.cpp:1059 create_volumetric_decal):
         # each is a unit box [-0.5, 0.5]^3 on a node, with a texture id
         # resolved by the app's decal strip array.
@@ -97,6 +102,10 @@ class Scene:
         self.world[idx] = np.eye(4, dtype=np.float32)
         self._levels_dirty = True
         return idx
+
+    def set_parent(self, node: int, parent: int) -> None:
+        self.parent[node] = parent
+        self._levels_dirty = True
 
     def _rebuild_levels(self) -> None:
         """Group nodes by tree depth for level-ordered batched updates."""
@@ -225,6 +234,10 @@ class Scene:
     def gather_visible_static_shadow_renderables(self, frustum) -> np.ndarray:
         mask = self._gather(frustum.planes, RENDERABLE_CASTS_SHADOW)
         return mask[(self.r_flags[mask] & RENDERABLE_DYNAMIC) == 0]
+
+    def gather_visible_dynamic_shadow_renderables(self, frustum) -> np.ndarray:
+        mask = self._gather(frustum.planes, RENDERABLE_CASTS_SHADOW)
+        return mask[(self.r_flags[mask] & RENDERABLE_DYNAMIC) != 0]
 
     @property
     def num_nodes(self) -> int:

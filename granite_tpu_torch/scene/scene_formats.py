@@ -2,11 +2,12 @@
 granite_tpu/scene/scene_formats.py the port uses; reference:
 renderer/formats/scene_formats.hpp).
 
-The records keep the fields the port reads or the scene builders set.
-MeshData carries either the classic SoA arrays or an MLT2 meshlet blob
-(the port's native codec, granite_tpu_torch/native), decoded to SoA at
-instantiation.  tests/test_torch_host_copies.py holds this copy equal
-to the original.
+The records keep every field of the original: the glTF parser
+(scene/gltf.py) sets them all.  MeshData carries either the classic SoA
+arrays or an MLT2 meshlet blob (the port's native codec,
+granite_tpu_torch/native), decoded to SoA at instantiation.
+tests/test_torch_host_copies.py and tests/test_torch_scene_files.py hold
+this copy equal to the original.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ class MaterialData:
     base_color_image: Optional[int] = None       # image index
     metallic_roughness_image: Optional[int] = None
     normal_image: Optional[int] = None
+    occlusion_image: Optional[int] = None
     emissive_image: Optional[int] = None
+    normal_scale: float = 1.0
     alpha_mode: int = ALPHA_MODE_OPAQUE
     alpha_cutoff: float = 0.5
     two_sided: bool = False
@@ -51,6 +54,7 @@ class MeshData:
     normals: Optional[np.ndarray] = None         # (V, 3)
     uvs: Optional[np.ndarray] = None             # (V, 2)
     tangents: Optional[np.ndarray] = None        # (V, 4) xyz + handedness w
+    colors: Optional[np.ndarray] = None          # (V, 4)
     joints: Optional[np.ndarray] = None          # (V, 4) u16
     weights: Optional[np.ndarray] = None         # (V, 4) f32
     # Morph targets: per-target position/normal deltas.
@@ -135,9 +139,23 @@ class NodeData:
     scale: np.ndarray = field(
         default_factory=lambda: np.ones(3, np.float32))
     meshes: list = field(default_factory=list)    # MeshData indices
+    camera: Optional[int] = None
     light: Optional[int] = None
     skin: Optional[int] = None
     morph_weights: Optional[np.ndarray] = None    # node weights override
+
+
+@dataclass
+class CameraData:
+    name: str = ""
+    fovy: float = 1.0
+    aspect: float = 16 / 9
+    znear: float = 0.1
+    zfar: float = 1000.0
+    node: Optional[int] = None
+    ortho: bool = False
+    xmag: float = 1.0
+    ymag: float = 1.0
 
 
 @dataclass
@@ -153,14 +171,39 @@ class LightData:
 
 
 @dataclass
+class AnimationData:
+    """Channels sampling node TRS (scene_formats.hpp:54 channel types)."""
+    name: str = ""
+    # each channel: dict(node=int, path='translation|rotation|scale|weights',
+    #                    interp='LINEAR|STEP|CUBICSPLINE',
+    #                    times=(K,), values=(K, C) [or (K,3,C) cubic])
+    channels: list = field(default_factory=list)
+
+    @property
+    def duration(self) -> float:
+        return max((float(c["times"][-1]) for c in self.channels
+                    if len(c["times"])), default=0.0)
+
+
+@dataclass
+class SkinData:
+    joints: np.ndarray = None            # node indices (J,)
+    inverse_bind: np.ndarray = None      # (J, 4, 4)
+    skeleton: Optional[int] = None
+
+
+@dataclass
 class SceneInfo:
     meshes: list = field(default_factory=list)
     materials: list = field(default_factory=list)
     images: list = field(default_factory=list)     # numpy RGBA u8 arrays
     image_srgb: list = field(default_factory=list)  # bool per image
+    image_paths: list = field(default_factory=list)  # source path or None
     nodes: list = field(default_factory=list)
     roots: list = field(default_factory=list)
+    cameras: list = field(default_factory=list)
     lights: list = field(default_factory=list)
+    animations: list = field(default_factory=list)
     skins: list = field(default_factory=list)
 
 

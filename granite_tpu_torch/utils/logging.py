@@ -1,5 +1,6 @@
-"""Logging with Granite's severity API (copy of the LOGI/LOGW surface of
-granite_tpu/utils/logging.py; reference: util/logging.hpp:48-78)."""
+"""Logging with Granite's severity API (copy of the LOGI/LOGW/LOGE
+surface of granite_tpu/utils/logging.py; reference:
+util/logging.hpp:48-78)."""
 
 from __future__ import annotations
 
@@ -20,3 +21,7 @@ def LOGI(fmt: str, *args) -> None:
 
 def LOGW(fmt: str, *args) -> None:
     _logger.warning(fmt % args if args else fmt)
+
+
+def LOGE(fmt: str, *args) -> None:
+    _logger.error(fmt % args if args else fmt)

@@ -20,6 +20,12 @@ from granite_tpu.scene.scene_formats import (
     generate_normals as jax_normals, generate_tangents as jax_tangents,
 )
 from granite_tpu.utils.image_io import load_image as jax_load_image
+from granite_tpu.math.transforms import decompose_trs as jax_decompose
+from granite_tpu.scene import scene_formats as JSF
+from granite_tpu.scene_export import camera_export as JCE
+from granite_tpu.utils import image_compare as JIC
+from granite_tpu.utils.timer import FrameTimer as JaxFrameTimer
+from granite_tpu.app import video_sink as JVS
 from granite_tpu_torch.app import bench_scene as TB
 from granite_tpu_torch.math import frustum as TF
 from granite_tpu_torch.math import muglm as TM
@@ -30,6 +36,11 @@ from granite_tpu_torch.scene import scene as TS
 from granite_tpu_torch.scene import scene_formats as TSF
 from granite_tpu_torch.scene.camera import FPSCamera
 from granite_tpu_torch.utils.image_io import load_image, save_png
+from granite_tpu_torch.app import video_sink as TVS
+from granite_tpu_torch.math.transforms import decompose_trs
+from granite_tpu_torch.scene_export import camera_export as TCE
+from granite_tpu_torch.utils import image_compare as TIC
+from granite_tpu_torch.utils.timer import FrameTimer
 
 RNG_SEED = 4
 
@@ -125,7 +136,8 @@ def test_aabb_and_trs():
         _eq(got, want)
 
 
-def test_fps_camera_view_and_projection():
+@pytest.mark.parametrize("ortho", [False, True])
+def test_fps_camera_view_and_projection(ortho):
     rng = _rng()
     for zfar in (0.0, 500.0):
         cams = FPSCamera(), JaxCamera()
@@ -134,6 +146,9 @@ def test_fps_camera_view_and_projection():
             cam.look_at(eye, at)
             cam.set_depth_range(0.05, zfar)
             cam.set_aspect(1.7)
+            cam.set_fovy(0.8)
+            if ortho:
+                cam.set_ortho(True, 3.0, 2.0)
         _eq(cams[0].position, cams[1].position)
         _eq(cams[0].rotation, cams[1].rotation)
         _eq(cams[0].get_view(), cams[1].get_view())
@@ -175,6 +190,94 @@ def test_normals_and_tangents():
     n = jax_normals(pos, idx)
     _eq(TSF.generate_normals(pos, idx), n)
     _eq(TSF.generate_tangents(pos, n, uv, idx), jax_tangents(pos, n, uv, idx))
+
+
+def test_decompose_trs():
+    """Scaled rotations, a mirrored one among them (det < 0)."""
+    rng = _rng()
+    for i in range(16):
+        s = rng.uniform(0.2, 3, size=3).astype(np.float32)
+        if i % 4 == 0:
+            s[1] = -s[1]
+        m = jax_compose(rng.normal(size=(1, 3)).astype(np.float32),
+                        _quat(rng)[None], s[None])[0]
+        for got, want in zip(decompose_trs(m), jax_decompose(m)):
+            _eq(got, want)
+
+
+@pytest.mark.parametrize("name", ["CameraData", "AnimationData", "SkinData",
+                                  "NodeData", "MaterialData", "SceneInfo"])
+def test_scene_records_match(name):
+    """The records the glTF parser fills: the same fields, in the same
+    order, with the same defaults."""
+    a, b = getattr(TSF, name)(), getattr(JSF, name)()
+    assert [f.name for f in fields(a)] == [f.name for f in fields(b)]
+    for f in fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            _eq(x, y)
+        else:
+            assert x == y, f.name
+    if name == "AnimationData":
+        ch = [dict(times=np.array([0.0, 1.5], np.float32)),
+              dict(times=np.array([], np.float32))]
+        assert TSF.AnimationData(channels=ch).duration == \
+            JSF.AnimationData(channels=ch).duration == 1.5
+
+
+def test_frame_timer_fixed_steps():
+    timers = FrameTimer(), JaxFrameTimer()
+    for step in (0.016, 1 / 60, 0.1, 0.03):
+        got = [t.frame(fixed_step=step) for t in timers]
+        assert got[0] == got[1] == step
+        assert timers[0].get_elapsed() == timers[1].get_elapsed()
+        assert timers[0].get_frame_time() == timers[1].get_frame_time()
+    assert FrameTimer().frame() >= 0.0       # the wall clock's period
+
+
+def test_image_compare():
+    rng = _rng()
+    a = rng.integers(0, 256, size=(9, 13, 4)).astype(np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-3, 4, size=a.shape), 0,
+                255).astype(np.uint8)
+    for x, y in ((a, b), (a, a)):
+        assert TIC.psnr_channels(x, y) == JIC.psnr_channels(x, y)
+        _eq(TIC.diff_image(x, y), JIC.diff_image(x, y))
+
+
+def test_camera_export_round_trip():
+    rng = _rng()
+    cams = [TCE.RecordedCamera(fovy=float(rng.uniform(0.5, 1.5)),
+                               position=rng.normal(size=3).astype(np.float32),
+                               direction=rng.normal(size=3).astype(
+                                   np.float32)) for _ in range(3)]
+    text = TCE.export_cameras_to_json(cams)
+    assert text == JCE.export_cameras_to_json(cams)
+    for got, want in zip(TCE.import_cameras_from_json(text),
+                         JCE.import_cameras_from_json(text)):
+        for f in fields(want):
+            if isinstance(getattr(want, f.name), np.ndarray):
+                _eq(getattr(got, f.name), getattr(want, f.name))
+            else:
+                assert getattr(got, f.name) == getattr(want, f.name)
+
+
+def test_video_sink_png_sequence(tmp_path, monkeypatch):
+    """Without ffmpeg both sinks write the same numbered PNG files."""
+    rng = _rng()
+    frames = rng.integers(0, 256, size=(3, 6, 8, 4)).astype(np.uint8)
+    for mod, name in ((TVS, "port"), (JVS, "jax")):
+        monkeypatch.setattr(mod.shutil, "which", lambda _name: None)
+        sink = mod.VideoSink(str(tmp_path / f"{name}.mp4"), 8, 6)
+        for f in frames:
+            sink.push_frame(f)
+        sink.close()
+    got = sorted(os.listdir(tmp_path / "port_frames"))
+    assert got == sorted(os.listdir(tmp_path / "jax_frames")) == [
+        f"frame_{i:05d}.png" for i in range(3)]
+    for n in got:
+        _eq(load_image(str(tmp_path / "port_frames" / n)),
+            load_image(str(tmp_path / "jax_frames" / n)))
 
 
 def test_scene_flags_and_constants():
@@ -220,8 +323,15 @@ def test_scene_transforms_and_gathers():
         fa, fb = TF.Frustum(vp), JF.Frustum(vp)
         for q in ("gather_visible_opaque_renderables",
                   "gather_visible_transparent_renderables",
-                  "gather_visible_static_shadow_renderables"):
+                  "gather_visible_static_shadow_renderables",
+                  "gather_visible_dynamic_shadow_renderables"):
             _eq(getattr(a, q)(fa), getattr(b, q)(fb))
+    # a re-parented node moves with its new parent in both
+    for sc in scenes:
+        sc.set_parent(5, 80)
+        sc.update_transform_tree()
+    _eq(a.world[:90], b.world[:90])
+    assert a.node_morph_weights == b.node_morph_weights == {}
 
 
 def test_scene_volumetric_decals():

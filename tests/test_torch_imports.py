@@ -1,6 +1,9 @@
 """The port never imports jax or the JAX package (granite_tpu), directly or
-transitively: it keeps its own copies of the host modules it needs."""
+transitively: it keeps its own copies of the host modules it needs.  Nor
+do chip_smoke.py (every module it imports, at the top or inside its
+functions) and the test helpers it loads (golden_utils, gltf_fixtures)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -38,6 +41,46 @@ def test_port_imports_without_jax():
     # (the native codec's loader included) are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
-        "renderer.ground", "renderer.ocean")} <= set(lines["NAMES"].split())
+        "renderer.ground", "renderer.ocean", "scene.gltf",
+        "scene.scene_loader", "scene.animation", "scene_export",
+        "scene_export.gltf_export", "scene_export.camera_export",
+        "utils.timer", "utils.image_compare", "app.video_sink")} \
+        <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
+
+
+SMOKE_SRC = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["granite_tpu"] = None
+sys.path.insert(0, "tests")
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print("LOADED", sorted(k for k, v in sys.modules.items() if v is not None
+                       and (k.split(".")[0] in ("jax", "granite_tpu"))))
+"""
+
+
+def _smoke_imports() -> set:
+    """Every module chip_smoke.py imports, wherever the import stands."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_without_jax():
+    names = _smoke_imports()
+    assert {"gltf_fixtures", "golden_utils"} <= names
+    assert not any(n.split(".")[0] in ("jax", "granite_tpu") for n in names)
+    proc = subprocess.run(
+        [sys.executable, "-c", SMOKE_SRC, "chip_smoke", *sorted(names)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout.splitlines()
