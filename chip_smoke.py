@@ -6,6 +6,10 @@
    the Hopper kernels from granite_tpu_torch/csrc, one nvcc per source
    in parallel (build seconds), and reads each CUDA kernel's registers,
    local (spill) bytes and static shared memory (cudaFuncGetAttributes).
+   Then the compile probe's path (granite_tpu_torch.tools.
+   compile_parallel_probe), counted from 0: two nvcc builds of kernel B5
+   one after the other and two from two threads at once (their wall
+   seconds and OVERLAPS or serialized), then its four bodies through B5.
 2. One phase per kernel at the bench frame's shapes (Sponza-class bench
    scene, 1920x1080, the bench config): the kernel and its plain PyTorch
    version on the same inputs on the card, compared, both timed, and the
@@ -27,6 +31,12 @@
    B2 and B4 again at 1440x810, the FSR2 render size (a partial 128-px
    tile column; B2 with the previous-position planes, as under TAA), at
    the same gates.  B1 and B2 are compared on the whole padded target.
+     B5 the compile probe's body at its four shapes (n_iters 96-99 over
+        (256-640, 256) f32): bit-equal.
+     B1 on the occlusion path's phase 1 at 1920x1080 (CULL_BACK, the
+        main camera, last frame's visible set): exact.
+     B4 on one 8x8 face of the volumetric diffuse bake (no lights, no
+        shadow map): 3e-4 relative.
    Timing: a kernel's ms is device time, CUDA events around the replay
    of a CUDA graph that captured N calls of its wrapper (the wrapper's
    own small torch ops included), after a warm-up call; plain_ms and
@@ -48,6 +58,8 @@
    image gate, launch counts (every kernel of the path > 0) and the
    raster overflow counters; then 4 more frames under torch.profiler give
    the device's busy time a frame, and 1 - busy / ms its idle share.
+   The seven paths of earlier slices run 6 timed and 2 traced frames
+   (OLD_FRAMES), so the whole script stays inside its time.
      deferred:      the bench config (deferred HDR), camera orbiting
                     (camera_orbit=0.01).
      forward:       the bench config with the forward renderer, VSM sun
@@ -83,6 +95,20 @@
                     two at 0 s agree.  After its counts are read, B1 is
                     held against its plain version on the frame's
                     dynamic casters (2048^2).
+     occlusion:     the bench config with occlusionCulling: B1 twice a
+                    frame on the main camera (two-phase HiZ culling), the
+                    classic resolve, B3, B4, orbiting from a walk-through
+                    camera at eye height in the scene's corner.  B1 must launch at
+                    least twice in every timed frame, both phases'
+                    overflow and clamp counters read 0, some timed frame
+                    must cull an object, and the two timed frames that
+                    culled most, rendered again with every object in
+                    last frame's visible set, must agree within 1 LSB.
+     volumetric:    the bench config with volumetric fog, its default
+                    fog region and the volumetric diffuse bake over the
+                    scene bounds (set-up includes the bake), orbiting.
+                    Frame 0 must differ from frame 0 without the volumes
+                    in >= 0.1% of the pixels.
    deferred_post and fsr2 are TAA paths: their chained camera stands
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
@@ -94,7 +120,9 @@
    deferred_decals (also once with one decal node, as
    tests/test_decals.py places it), deferred_meshlet and deferred_hdr on
    a `.scene` of the test scene, one character and the morph sheet
-   through its camera 0, each with
+   through its camera 0, deferred_hdr with occlusionCulling and
+   deferred_taa_fog with fog regions and volumetric diffuse (resolution
+   2, 8x8 faces), each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
    environment), and "true" sends the CPU down the same ones.
@@ -139,6 +167,20 @@ ANIM_CONFIG = {**BENCH_CONFIG,
                "rasterMaxVisible": 163840 + len(CHARACTERS) * 24576 + 8192}
 # The bench glTF's camera: in front of the characters, looking at them.
 ANIM_EYE, ANIM_TARGET = (0.0, 5.5, 16.0), (0.0, 1.5, 0.0)
+# Two-phase HiZ occlusion culling: B1 twice a frame on the main camera,
+# here a walk-through view at eye height from the scene's corner (the
+# bench camera looks down on the whole scene from outside it, where no
+# object hides another: it culls 0 of the 144 objects on the card).
+OCCLUSION_CONFIG = {**BENCH_CONFIG, "occlusionCulling": True}
+OCCLUSION_EYE, OCCLUSION_TARGET = (12.0, 1.2, 12.0), (0.0, 0.5, 0.0)
+# Fog regions (the viewer's default region) and the volumetric diffuse
+# bake over the scene bounds; VOLUMES_OFF is the same frame without them.
+VOLUMES_OFF = {**BENCH_CONFIG, "volumetricFog": True}
+VOLUMES_CONFIG = {**VOLUMES_OFF, "volumetricFogRegions": True,
+                  "volumetricDiffuse": True}
+# The paths of earlier slices run at a smaller depth (timed and traced
+# frames), so the whole script stays well inside its time limit.
+NEW_PATHS = ("occlusion", "volumetric")
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -146,18 +188,30 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "fsr2": (FSR2_CONFIG, ("B1", "B2", "B3", "B4")),
               "ocean_ground": (OCEAN_CONFIG, ("B1", "B2", "B3", "B4")),
               "decals_meshlet": (DECALS_CONFIG, ("B1", "B2", "B3", "B4")),
-              "gltf_animated": (ANIM_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "gltf_animated": (ANIM_CONFIG, ("B1", "B2", "B3", "B4")),
+              "occlusion": (OCCLUSION_CONFIG, ("B1", "B3", "B4")),
+              "volumetric": (VOLUMES_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
-# decal node, on the animated `.scene`).  Each runs with
-# materialTileSampler "true", so both devices take the tiled routes.
-CROSS_DEVICE = {name: (name, False, False) for name in (
+# decal node, on the animated `.scene`, knobs added, camera (eye, target)
+# or None).  Each runs with materialTileSampler "true", so both devices
+# take the tiled routes.
+CROSS_DEVICE = {name: (name, False, False, {}, None) for name in (
     "deferred_hdr", "forward_shadow", "deferred_smaa", "forward_vsm_fxaa",
     "deferred_taa_fog", "deferred_fsr2", "deferred_ssao_ssr",
     "deferred_ocean_ground", "deferred_decals", "deferred_meshlet")}
 CROSS_DEVICE["deferred_decals one decal node"] = (
-    "deferred_decals", True, False)
+    "deferred_decals", True, False, {}, None)
 CROSS_DEVICE["deferred_hdr gltf_animated scene"] = (
-    "deferred_hdr", False, True)
+    "deferred_hdr", False, True, {}, None)
+# (behind the test scene's ring, where its near object hides seven)
+CROSS_DEVICE["deferred_hdr occlusionCulling"] = (
+    "deferred_hdr", False, False, {"occlusionCulling": True},
+    ((6.5, 1.1, 0.0), (0.0, 1.2, 0.0)))
+CROSS_DEVICE["deferred_taa_fog fog regions + volumetric diffuse"] = (
+    "deferred_taa_fog", False, False,
+    {"volumetricFogRegions": True, "volumetricDiffuse": True,
+     "volumetricDiffuseResolution": 2, "volumetricDiffuseFaceResolution": 8},
+    None)
 # Decals of the decals_meshlet path: the viewer's table capacity, each
 # box scaled to this share of its distance from the camera.
 DECAL_COUNT, DECAL_SIZE = 16, 0.08
@@ -186,6 +240,7 @@ B3_OPS, B3_PIXEL_OPS = 12, 15
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 12, 0.01
 TRACED_FRAMES = 4
+OLD_FRAMES, OLD_TRACED_FRAMES = 6, 2
 FRAME_TIME = 1.0 / 60.0
 PSNR_GATE_DB = 48.0
 # id -> (source, TPU kernel it replaces, its CUDA kernels' attribute
@@ -211,6 +266,10 @@ KERNELS = {
     "B4": ("granite_tpu_torch/csrc/shade_fused.cu",
            "granite_tpu/ops/shade_fused.py:74",
            (("granite_attrs_shade_fused", 0, "shade_fused_kernel"),)),
+    "B5": ("granite_tpu_torch/csrc/compile_probe.cu",
+           "tools/compile_parallel_probe.py:44",
+           tuple(("granite_attrs_compile_probe", v,
+                  f"compile_probe_kernel<{96 + v}>") for v in range(4))),
 }
 
 
@@ -369,6 +428,28 @@ def probe():
     return card, attrs
 
 
+def compile_probe_path() -> tuple[dict, dict]:
+    """The compile probe's own path (python -m
+    granite_tpu_torch.tools.compile_parallel_probe): two nvcc builds of
+    B5 one after the other, two from two threads at once, the verdict;
+    then its four bodies through the main library's B5, counted from 0.
+    -> (its result, its launches)."""
+    import torch
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.tools import compile_parallel_probe as CP
+    K.reset_launch_counts()
+    r = CP.run_probe()
+    outs = CP.run_bodies(torch.device("cuda"))
+    launches = dict(K.LAUNCHES)
+    log(f"compile probe: serial 2-compile wall {r['serial_s']:.3f} s, "
+        f"threaded 2-compile wall {r['threaded_s']:.3f} s ({r['verdict']}; "
+        f"OVERLAPS below {CP.OVERLAP_SHARE} x serial); bodies out[0, 0] "
+        f"{outs}; launches {launches}")
+    check(launches["B5"] == len(CP.PROBE_SHAPES),
+          f"the probe's bodies launched B5 {launches['B5']} times")
+    return dict(r, bodies=outs), launches
+
+
 def b1_case(args, label: str) -> dict:
     """Kernel B1 against its plain version, depth and ids exact over the
     whole padded target."""
@@ -473,15 +554,20 @@ def surface(app, planes, cov):
 def b4_case(app, params, surf, label: str, ao=None) -> dict:
     """Kernel B4 against its plain version on a surf dict (with the AO
     plane when given), at the 3e-4 relative gate."""
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    kw = app.light_kwargs(params, params["static_shadow_depth"])
+    args, kkw = SR.shade_inputs(surf, params, ao=ao, **kw)
+    check(kkw["has_ao"] == (ao is not None), "B4 has_ao flag")
+    return b4_compare(args, kkw, label)
+
+
+def b4_compare(args, kkw, label: str) -> dict:
+    """B4 on shade_inputs' (args, keyword args) against its plain version
+    at the 3e-4 relative gate; timed."""
     import torch
     from granite_tpu_torch.ops.shade_fused import (
         shade_planes_fused, shade_planes_plain,
     )
-    from granite_tpu_torch.renderer import scene_renderer as SR
-
-    kw = app.light_kwargs(params, params["static_shadow_depth"])
-    args, kkw = SR.shade_inputs(surf, params, ao=ao, **kw)
-    check(kkw["has_ao"] == (ao is not None), "B4 has_ao flag")
     o_k = shade_planes_fused(*args, **kkw)
     o_p = shade_planes_plain(*args, **kkw)
     torch.cuda.synchronize()
@@ -499,6 +585,99 @@ def b4_case(app, params, surf, label: str, ao=None) -> dict:
         f"max abs err {err:.3g} (rel {rel:.3g}); kernel {ms:.3f} ms, plain "
         f"{pms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bytes']} B)")
     return dict(case=label, max_abs_err=err, ms=ms, plain_ms=pms, **b)
+
+
+def b5_cases() -> dict:
+    """B5 against its plain version at the JAX probe's four shapes, on
+    seeded inputs on the card: bit-equal.  Bound: x read once and the
+    output written once, 2 n_iters FP32 ops an element; either is far
+    under a launch's latency at these sizes."""
+    import torch
+    from granite_tpu_torch.tools import compile_parallel_probe as CP
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = []
+    for n, shape in CP.PROBE_SHAPES.items():
+        x = torch.rand(shape, generator=g, device="cuda") * 4.0 - 2.0
+        o_k = CP.probe_body(x, n)
+        o_p = CP.probe_body_plain(x, n)
+        torch.cuda.synchronize()
+        check(torch.equal(o_k, o_p), f"B5 n_iters {n} differs from plain")
+        ms = device_ms(lambda: CP.probe_body(x, n), 20)
+        pms = host_ms(lambda: CP.probe_body_plain(x, n), 3)
+        b = bound(nbytes(x, o_k), 2 * n * x.numel())
+        log(f"B5 n_iters {n} {shape}: bit-equal; kernel {ms:.4f} ms, plain "
+            f"{pms:.3f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+            f"{b['bytes']} B, {b['ops']} ops; far under a launch's latency)")
+        cases.append(dict(case=f"n_iters {n} {shape[0]}x{shape[1]}",
+                          max_abs_err=0.0, ms=ms, plain_ms=pms, **b))
+    return dict(cases[0], cases=cases[1:])
+
+
+def b1_main_view_args(app, params, vis):
+    """B1's inputs for the occlusion path's phase 1 on its camera's
+    1920x1080 main view: CULL_BACK setup, the frustum-visible objects of
+    last frame's visible set `vis`, the viewport's bin window."""
+    from granite_tpu_torch.ops import raster as R
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    packed = app.packed
+    ext = params["external"]
+    clip, _wpos, _wnrm, _wtan = SR.transform_vertices(
+        packed, ext["world"], ext["normal_mats"], params["view_proj"])
+    setup = R.setup_triangles(clip, packed.indices, WIDTH, HEIGHT,
+                              cull_mode=R.CULL_BACK)
+    mask = params["object_mask"] & vis
+    setup = setup._replace(valid=setup.valid & mask[packed.tri_object.long()])
+    span_w, span_h = SR.bin_window(WIDTH, HEIGHT)
+    pk, st, hr, hs = RB.bin_triangles(setup, WIDTH, HEIGHT, span_w=span_w,
+                                      span_h=span_h)[:4]
+    return (st, hs, pk, hr, -(-WIDTH // RB.TILE_W), -(-HEIGHT // RB.TILE_H),
+            span_w, span_h)
+
+
+def occlusion_app():
+    """The occlusion path's viewer: the bench scene, its config and the
+    walk-through camera."""
+    import numpy as np
+    app = make_app(OCCLUSION_CONFIG, True, "cuda")
+    app.camera.look_at(np.asarray(OCCLUSION_EYE, np.float32),
+                       np.asarray(OCCLUSION_TARGET, np.float32))
+    return app
+
+
+def slice_kernel_phases(results: dict) -> None:
+    """B5 at the probe's shapes; B1 on the occlusion path's phase 1 at
+    1920x1080 (after one culled frame, so its visible set is last
+    frame's); B4 on one 8x8 face of the diffuse bake (no lights, no
+    shadow map), from a probe at the bench scene's center."""
+    import numpy as np
+    import torch
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    results["B5"] = b5_cases()
+    app = occlusion_app()
+    app.swapchain_updated(WIDTH, HEIGHT)
+    app.render_frames_chained(FRAME_TIME, 0.0, 1)
+    vis = app._history["vis-history"]
+    params = app._param_cache[1]
+    main = b1_case(b1_main_view_args(app, params, vis),
+                   "main view 1920x1080, occlusion phase 1")
+    results["B1"]["cases"].append(main)
+    bake = app.bake_inputs()
+    mn = app.scene.r_world_min.min(axis=0)
+    mx = app.scene.r_world_max.max(axis=0)
+    center = (0.5 * (mn + mx)).astype(np.float32)
+    surf, face_params = app.probe_face(bake, center, 0)
+    fr = bake["face_res"]
+    args, kkw = SR.shade_inputs(surf, face_params, width=fr, height=fr,
+                                env=bake["env"])
+    check(not kkw["has_lights"] and kkw["has_env"], "B4 bake face flags")
+    face = b4_compare(args, kkw, f"diffuse bake face {fr}x{fr}")
+    results["B4"]["cases"].append(face)
+    for k, case in (("B1", main), ("B4", face)):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                        case["max_abs_err"])
+    del app
+    torch.cuda.empty_cache()
 
 
 def b1_sun_args(app, world):
@@ -931,6 +1110,78 @@ def b1_dynamic_case(app) -> dict:
                     2, 8), "dynamic casters 2048^2")
 
 
+def occlusion_check(app, stats: dict, b1_frames: list, culls: list,
+                    kept: list) -> dict:
+    """The occlusion path's gates: B1 at least twice in every timed
+    frame, its two phases' overflow and clamp counters at 0, some timed
+    frame culling an object, and culling that is conservative: the two
+    timed frames that culled most, rendered again from the same params
+    and history with every object in last frame's visible set, agree
+    with the culled frames within 1 LSB."""
+    import torch
+    check(len(b1_frames) == FRAMES and min(b1_frames) >= 2,
+          f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
+    for phase in ("occlusion-phase1", "occlusion-phase2"):
+        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
+            check(stats[phase].get(k, 0) == 0,
+                  f"occlusion {phase} {k} = {stats[phase].get(k)}")
+    table = [{k: int(v) for k, v in c.items()} for c in culls]
+    log(f"occlusion: objects {app.packed.num_objects}; each timed frame "
+        "(in frustum, phase 1, phase 2, culled) "
+        f"{[(c['in_frustum'], c['phase1'], c['phase2'], c['culled']) for c in table]}")
+    check(max(c["culled"] for c in table) >= 1,
+          "occlusion culled no object in any timed frame")
+    picks = sorted(range(len(table)), key=lambda i: -table[i]["culled"])[:2]
+    diffs = []
+    for i in sorted(picks):
+        params, hist, culled = kept[i]
+        full, _hist = app.graph.execute(params, {
+            **hist, "vis-history": torch.ones_like(hist["vis-history"])})
+        torch.cuda.synchronize()
+        check(int(app.cull_counts["culled"]) == 0,
+              "the all-visible re-render culled objects")
+        d = int((culled[..., :3].int() - full[..., :3].int()).abs().max())
+        diffs.append(d)
+        log(f"occlusion: timed frame {i} ({table[i]['culled']} culled) "
+            f"against its all-visible re-render: max difference {d} LSB")
+        check(d <= 1, f"culled frame {i} differs by {d} > 1 LSB")
+    return dict(culled_per_frame=[c["culled"] for c in table],
+                conservative_max_lsb=max(diffs))
+
+
+def volumes_check(app) -> dict:
+    """Frame 0 of the volumetric path from a fresh history must differ
+    from the same frame without the volumes (the diffuse probes and the
+    fog regions switched off: VOLUMES_OFF) in >= MIN_CHANGED_SHARE of the
+    pixels."""
+    import torch
+
+    def frame0():
+        app._history = app.graph.initial_history(app.device)
+        return app.render_frames_chained(FRAME_TIME, 0.0, 1)
+
+    with_volumes = frame0()
+    probes, app._vol_diffuse = app._vol_diffuse, None
+    app.config.volumetric_fog_regions = False
+    without = frame0()
+    app._vol_diffuse = probes
+    app.config.volumetric_fog_regions = True
+    torch.cuda.synchronize()
+    changed = backbuffer_diff(without, with_volumes)
+    need = int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
+    vols = app._vol_diffuse["volumes"]
+    log(f"volumetric: {len(vols)} diffuse volume(s), probe grid "
+        f"{app.scene.diffuse_volume_res}, faces "
+        f"{app.config.volumetric_diffuse_face_resolution}^2, baked in "
+        f"{app.bake_seconds:.2f} s (B1 counters over its faces "
+        f"{ {k: int(v) for k, v in app.bake_stats.items()} }); "
+        f"{len(app.scene.fog_region_node)} fog "
+        f"region(s); frame 0 changes in {changed} pixels (> 8 levels) of "
+        f"{WIDTH * HEIGHT} against frame 0 without them, gate {need}")
+    check(changed >= need, f"the volumes changed {changed} < {need} pixels")
+    return dict(bake_s=app.bake_seconds, volume_pixels=changed)
+
+
 def main_path(name: str, results: dict) -> dict:
     """One bench frame path through the kernels; returns its launches
     (gltf_animated adds its B1 case to results)."""
@@ -939,6 +1190,8 @@ def main_path(name: str, results: dict) -> dict:
     from granite_tpu_torch.kernels import build as K
 
     cfg, required = MAIN_PATHS[name]
+    frames, traced = (FRAMES, TRACED_FRAMES) if name in NEW_PATHS \
+        else (OLD_FRAMES, OLD_TRACED_FRAMES)
     K.reset_launch_counts()
     t0 = time.monotonic()
     if name == "gltf_animated":
@@ -949,6 +1202,8 @@ def main_path(name: str, results: dict) -> dict:
                                      ANIM_TARGET)
         app = make_app(cfg, False, "cuda", scene=scene, camera_index=0)
         files.cleanup()
+    elif name == "occlusion":
+        app = occlusion_app()
     else:
         app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
@@ -964,28 +1219,33 @@ def main_path(name: str, results: dict) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # B1's launches in each timed frame: the render graph runs once a
-    # frame, and a wrapper counts its launch on the host as it enqueues
-    b1_frames = []
+    # frame, and a wrapper counts its launch on the host as it enqueues;
+    # under occlusion culling it also keeps each frame's cull counts (on
+    # the device) and its params, history and backbuffer
+    b1_frames, culls, kept = [], [], []
     execute = app.graph.execute
 
     def counted(params, history):
         n = K.LAUNCHES["B1"]
         result = execute(params, history)
         b1_frames.append(K.LAUNCHES["B1"] - n)
+        if app.config.occlusion_culling:
+            culls.append(dict(app.cull_counts))
+            kept.append((params, history, result[0]))
         return result
 
     app.graph.execute = counted
     t1 = time.monotonic()
     start.record()
-    out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, FRAMES,
+    out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, frames,
                                     camera_orbit=ORBIT)
     end.record()
     torch.cuda.synchronize()
-    host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
-    ms = start.elapsed_time(end) / FRAMES
+    host_ms = (time.monotonic() - t1) * 1e3 / frames
+    ms = start.elapsed_time(end) / frames
     launches = dict(K.LAUNCHES)
     del app.graph.execute
-    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
+    busy_ms, ranges = device_busy_ms(app, traced)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
@@ -994,15 +1254,15 @@ def main_path(name: str, results: dict) -> dict:
     camera = "still, jittered" if app._jitter is not None else "orbiting"
     log(f"main path {name} {WIDTH}x{HEIGHT} (renders {app._rw}x{app._rh}):"
         f" {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
-        f"clock) over {FRAMES} frames, camera {camera}; setup + {WARMUP} "
+        f"clock) over {frames} frames, camera {camera}; setup + {WARMUP} "
         f"warm-up frames {setup_s:.1f} s; device busy {busy_ms:.3f} "
-        f"ms/frame over {TRACED_FRAMES} traced frames, idle share "
+        f"ms/frame over {traced} traced frames, idle share "
         f"{1.0 - busy_ms / ms:.3f} of the untraced frame")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
     log(f"device ms a frame by range {name} "
         f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
-    log(f"launches {name} {launches}; B1 in each of the {FRAMES} timed "
+    log(f"launches {name} {launches}; B1 in each of the {frames} timed "
         f"frames {b1_frames}")
     # max_bin_entries and the overflow/clamp counters: printed, gated only
     # on the time-varying paths (the reference clamps and drops the same
@@ -1010,9 +1270,14 @@ def main_path(name: str, results: dict) -> dict:
     log(f"raster stats {stats}")
     if name == "ocean_ground":
         time_check(app, stats, "ocean", 5.0)
+    if name == "occlusion":
+        occlusion_check(app, stats, b1_frames, culls, kept)
+        del culls, kept
+    if name == "volumetric":
+        volumes_check(app)
     if name == "gltf_animated":
-        check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
-              f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
+        check(len(b1_frames) == frames and min(b1_frames) >= 1,
+              f"B1 launches in the {frames} timed frames: {b1_frames}")
         time_check(app, stats, "animation", 1.0)
         # host side of a frame: pose, palette, culling, params, uploads
         t = time.monotonic()
@@ -1038,6 +1303,7 @@ def main_path(name: str, results: dict) -> dict:
 
 
 def cross_device() -> None:
+    import numpy as np
     import torch
     from golden_utils import CONFIGS, psnr     # numpy only, no jax
     from granite_tpu_torch.app.bench_scene import build_default_test_scene
@@ -1045,13 +1311,17 @@ def cross_device() -> None:
     scene = write_animated_scene(files.name, build_default_test_scene(),
                                  [(2.5, 1.2, 2.5)], (-2.5, 0.1, 2.5),
                                  (7.0, 5.5, 9.0), (0.0, 0.8, 0.0))
-    for name, (golden, decal_node, animated) in CROSS_DEVICE.items():
-        cfg = {**CONFIGS[golden], "materialTileSampler": "true"}
+    for name, (golden, decal_node, animated, knobs, camera) in \
+            CROSS_DEVICE.items():
+        cfg = {**CONFIGS[golden], **knobs, "materialTileSampler": "true"}
         imgs = {}
         for device in ("cuda", "cpu"):
             app = make_app(cfg, False, device,
                            scene=scene if animated else None,
                            camera_index=0 if animated else -1)
+            if camera is not None:
+                app.camera.look_at(*(np.asarray(c, np.float32)
+                                     for c in camera))
             if decal_node:
                 # tests/test_decals.py's box over the test scene's floor
                 node = app.scene.create_node(translation=(0, 0, 0),
@@ -1078,10 +1348,14 @@ def main() -> int:
         __file__)), "tests"))
     t_start = time.monotonic()
     card, attrs = probe()
+    t = time.monotonic()
+    probe_result, probe_launches = compile_probe_path()
+    log(f"compile probe took {time.monotonic() - t:.1f} s")
     results: dict = {}
     kernel_phases(results)
+    slice_kernel_phases(results)
     log(f"phases 1-2 took {time.monotonic() - t_start:.1f} s")
-    by_path = {}
+    by_path = {"compile_probe": probe_launches}
     for name in MAIN_PATHS:
         t = time.monotonic()
         by_path[name] = main_path(name, results)
@@ -1107,7 +1381,11 @@ def main() -> int:
         "timing": "ms: device time, CUDA graph of N wrapper calls replayed "
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
-        "frames_per_path": WARMUP + FRAMES, "kernels": kernels}))
+        "frames_per_path": {p: WARMUP + (FRAMES if p in NEW_PATHS
+                                         else OLD_FRAMES)
+                            for p in MAIN_PATHS},
+        "compile_probe": probe_result,
+        "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

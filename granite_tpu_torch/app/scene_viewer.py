@@ -20,9 +20,16 @@ composited onto the cached static map.  The FFT ocean (ocean-fft pass, its
 grid displaced at vertex transform by the elapsed time) and the terrain
 join the scene before it is packed; meshEncoding "meshlet" re-encodes the
 static meshes through the MLT2 codec; volumetric decals blend into the
-resolved base color before lighting.  Kernels: B1 for the sun shadow map
-and the clustered light shadow atlas, B2 + B3 for the surface, B3 + B4
-for lighting (B4 takes the SSAO plane), B3T for the VSM sun term.  Config
+resolved base color before lighting.  occlusionCulling takes the
+surface through two-phase HiZ culling (B1 twice a frame, then the classic
+resolve), its per-object visibility set carried as vis-history;
+volumetricFogRegions bounds the froxel fog to unit-box regions (a
+default one at scale 40); volumetricDiffuse bakes ambient-cube probe
+volumes at set-up (B1, the classic resolve, B3, B4 on small cube faces)
+whose irradiance replaces the SH sky's.  Kernels: B1 for the sun shadow
+map, the clustered light shadow atlas and the culled main view, B2 + B3
+for the surface, B3 + B4 for lighting (B4 takes the SSAO plane), B3T
+for the VSM sun term.  Config
 knobs keep the reference's config.json names; a knob value the port does
 not implement raises NotImplementedError.
 
@@ -37,6 +44,7 @@ Run:
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -47,9 +55,13 @@ from ..graph.render_graph import (
     AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
 )
 from ..math.frustum import Frustum
-from ..math.muglm import quat_from_axis_angle, quat_normalize, quat_rotate
+from ..math.muglm import (
+    look_at_matrix, perspective, quat_from_axis_angle, quat_normalize,
+    quat_rotate,
+)
 from ..math.transforms import decompose_trs
 from ..ops import hdr as HDR
+from ..ops import raster as R
 from ..ops import taa as TAA
 from ..ops.clusterer import bin_lights_tiles, bin_lights_z, pack_lights
 from ..ops.decals import (
@@ -57,6 +69,7 @@ from ..ops.decals import (
 )
 from ..ops.fsr2 import fsr2_jitter_phases, fsr2_upscale
 from ..ops.fxaa import fxaa
+from ..ops.hiz import build_hiz, occlusion_test, project_aabbs
 from ..ops.light_shadows import FACE_DIRS, FACE_UPS, assign_slices, \
     pack_atlas
 from ..ops.shadow import (
@@ -70,17 +83,24 @@ from ..ops.volumetric_fog import (
     DEFAULT_D, DEFAULT_H, DEFAULT_W, Z_RANGE, apply_fog,
     fog_accumulate, fog_light_density,
 )
-from ..renderer.environment import Environment, procedural_sky_equirect
+from ..renderer.environment import (
+    Environment, analytic_sky, procedural_sky_equirect, sample_environment,
+)
 from ..renderer.ground import (
     GroundLOD, fbm_heightmap, flat_grid_mesh, ground_mesh,
 )
 from ..renderer.ocean import Ocean, OceanConfig
+from ..renderer.raster_dispatch import rasterize_binned_checked
 from ..renderer.render_context import RenderContext
 from ..renderer.scene_renderer import (
     BLOCK_MORPH_SKIN, BLOCK_SKIN, PackedScene, fused_raster_surface,
-    mesh_instances, motion_vectors, pack_scene, render_shadow_map,
-    shade_surface_fused, transform_vertices, transparent_composite,
-    world_positions,
+    mesh_instances, motion_vectors, pack_scene, project, rasterize_scene,
+    render_shadow_map, shade_surface_fused, surface_attributes,
+    transform_vertices, transparent_composite, world_positions,
+)
+from ..renderer.volumetric_diffuse import (
+    FACE_DIRS as PROBE_FACE_DIRS, FACE_DV as PROBE_FACE_DV, bake_volume,
+    fallback_cube_from_sky, volume_transforms,
 )
 from ..scene.animation import AnimationSystem
 from ..scene.camera import FPSCamera
@@ -222,21 +242,19 @@ class ViewerConfig:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
-        far (deferred/forward, HDR, every postAA, fog, SSAO/SSR, render
-        scale, ocean, terrain, volumetric decals, meshlet encoding,
+        far (deferred/forward, HDR, every postAA, fog with its regions,
+        SSAO/SSR, render scale, ocean, terrain, volumetric decals,
+        volumetric diffuse, occlusion culling, meshlet encoding,
         rescaleScene, the kernel route)."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1,),
             "directional_light_cascaded_shadows": (False,),
             "clustered_lights_shadows_vsm": (False,),
-            "volumetric_fog_regions": (False,),
-            "volumetric_diffuse": (False,),
             "texture_streaming": (False,), "env_tile_sampler": (True,),
             "env_specular_half_res": (False,),
             "mesh_encoding": ("classic", "meshlet"),
             "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
             "post_aa": _POST_AA, "show_ui": (False,),
-            "occlusion_culling": (False,),
         }
         for name, allowed in need.items():
             if getattr(self, name) not in allowed:
@@ -403,6 +421,15 @@ class SceneViewerApplication:
         self._static_shadow_cache = None
         self._orbit_cache = None
         self.raster_stats: dict = {}
+        # occlusionCulling: the last frame's objects in the frustum,
+        # rendered in each phase and culled (0-dim device tensors, read
+        # without a sync)
+        self.cull_counts: dict = {}
+        # volumetricDiffuse: the baked volumes and the sky fallback,
+        # baked once at the first swapchain_updated
+        self._vol_diffuse = None
+        self.bake_seconds = 0.0
+        self.bake_stats: dict = {}
 
     # -- scene ----------------------------------------------------------------
     def _add_ocean(self, info: SceneInfo) -> None:
@@ -549,6 +576,16 @@ class SceneViewerApplication:
             imgs = self.decal_images or [builtin_decal_image()]
             self._decal_strips = torch.as_tensor(build_decal_strips(imgs),
                                                  device=self.device)
+        if self.config.volumetric_diffuse and self._vol_diffuse is None:
+            self._bake_diffuse_volumes()
+        if self.config.volumetric_fog_regions and \
+                self.config.volumetric_fog and not self.scene.fog_region_node:
+            # The reference viewer's default region
+            # (scene_viewer_application.cpp:311-320): scale 40 at y = 20.
+            node = self.scene.create_node(translation=(0.0, 20.0, 0.0),
+                                          scale=(40.0, 40.0, 40.0))
+            self.scene.create_volumetric_fog_region(node)
+            self.scene.update_transform_tree()
         self._build_light_shadow_atlas()
         # The frame renders at resolutionScale x the display size.
         rs = float(self.config.resolution_scale)
@@ -612,7 +649,7 @@ class SceneViewerApplication:
                 .add_external_input("normal_mats") \
                 .add_color_output("hdr", rel(1, 3)) \
                 .add_depth_stencil_output("depth-main", rel(1, 1))
-            self._add_motion_vectors(fwd, rel)
+            self._add_surface_outputs(fwd, rel)
             if self.config.volumetric_fog:
                 fwd.add_texture_input("fog-volume")
             if use_shadow:
@@ -682,12 +719,18 @@ class SceneViewerApplication:
         self._param_cache = None
         self._orbit_cache = None
 
-    def _add_motion_vectors(self, p, rel) -> None:
+    def _add_surface_outputs(self, p, rel) -> None:
         """Under TAA the surface pass (gbuffer or forward) reads last
-        frame's node transforms and writes motion vectors."""
+        frame's node transforms and writes motion vectors; under
+        occlusion culling it reads and writes the per-object visibility
+        set (vis-history)."""
         if self._use_taa:
             p.add_external_input("prev_world")
             p.add_color_output("mv", rel(1, 2))
+        if self.config.occlusion_culling:
+            p.add_history_input("vis-history")
+            p.add_storage_output("vis-history", BufferInfo(
+                (self.packed.num_objects,), torch.bool))
 
     def _add_deferred_passes(self, g, rel, use_shadow: bool) -> None:
         """G-buffer pass, [SSAO at half res,] the lighting resolve, [SSR]."""
@@ -701,7 +744,7 @@ class SceneViewerApplication:
             .add_color_output("g-pos", rel(1, 3)) \
             .add_depth_stencil_output("depth-main", rel(1, 1)) \
             .add_color_output("g-covered", rel(1, 1, torch.bool))
-        self._add_motion_vectors(gb, rel)
+        self._add_surface_outputs(gb, rel)
         if self.ocean is not None:
             gb.add_texture_input("ocean-maps")
         gb.set_execute(self._gbuffer_pass)
@@ -826,7 +869,9 @@ class SceneViewerApplication:
 
     def _raster_surface(self, ctx, xf, stats_key: str):
         """Raster + resolve (B2) + material fetch (B3) of the opaque
-        queue -> (surf, depth)."""
+        queue -> (surf, depth, extra pass outputs).  Under occlusion
+        culling: the two-phase cull's visibility buffer (B1 twice), the
+        classic resolve and B3, and the next frame's vis-history."""
         clip, wpos, wnrm, wtan = xf
         # Under TAA the resolve also carries each surface's last-frame
         # world position (B2's PLANE_PREV: last frame's node transforms,
@@ -835,6 +880,14 @@ class SceneViewerApplication:
         prev_wpos = world_positions(
             self.packed, ctx.input("prev_world"), p.get("prev_skin_palette"),
             p.get("prev_morph_weights")) if self._use_taa else None
+        if self.config.occlusion_culling:
+            setup, depth, tri, vis = self._two_phase_visibility(ctx, clip)
+            surf = surface_attributes(
+                self.packed, setup, tri, wpos, wnrm, wtan, self._rw,
+                self._rh, lod_bias=self.config.lod_bias,
+                prev_world_pos=prev_wpos,
+                material_textures=self.config.material_textures)
+            return surf, depth, {"vis-history": vis}
         surf, depth, stats = fused_raster_surface(
             self.packed, clip, ctx.params["object_mask"], wpos, wnrm, wtan,
             self._rw, self._rh, lod_bias=self.config.lod_bias,
@@ -842,7 +895,48 @@ class SceneViewerApplication:
             max_visible=self._resolved_max_visible(),
             material_textures=self.config.material_textures)
         self.raster_stats[stats_key] = stats
-        return surf, depth
+        return surf, depth, {}
+
+    def _two_phase_visibility(self, ctx, clip):
+        """Two-phase HiZ occlusion culling (scene_renderer.hpp:132
+        CullingPhase First/Second, meshlet_cull.comp): phase 1 rasterizes
+        last frame's visible set, a HiZ pyramid is built from its depth,
+        phase 2 rasterizes the other frustum-visible objects that pass
+        the test against it (or reach behind the near plane); the phases
+        merge on depth, and the next frame's visible set is tested
+        against the final depth.  Both phases run B1 (CULL_BACK, no
+        compaction: rasterMaxVisible is not read here, as in the
+        reference's classic route).  -> (setup, depth, tri, vis)."""
+        p = ctx.params
+        w, h = self._rw, self._rh
+        prev_vis = ctx.history("vis-history")
+        setup = R.setup_triangles(clip, self.packed.indices, w, h)
+        rmin, rmax, maxz, behind = project_aabbs(
+            p["obj_world_min"], p["obj_world_max"], p["view_proj"], w, h)
+        tri_object = self.packed.tri_object.long()
+
+        def raster_with(mask, phase: int):
+            depth, tri, stats = rasterize_binned_checked(
+                setup._replace(valid=setup.valid & mask[tri_object]), w, h)
+            self.raster_stats[f"occlusion-phase{phase}"] = stats
+            return depth, tri
+
+        object_mask = p["object_mask"]
+        m1 = object_mask & prev_vis
+        depth1, tri1 = raster_with(m1, 1)
+        occ2 = occlusion_test(build_hiz(depth1), rmin, rmax, maxz, w, h) \
+            | behind
+        m2 = object_mask & ~prev_vis & occ2
+        depth2, tri2 = raster_with(m2, 2)
+        closer2 = depth2 > depth1
+        depth = torch.where(closer2, depth2, depth1)
+        tri = torch.where(closer2, tri2, tri1)
+        vis = occlusion_test(build_hiz(depth), rmin, rmax, maxz, w, h) \
+            | behind
+        self.cull_counts = {"in_frustum": object_mask.sum(),
+                            "phase1": m1.sum(), "phase2": m2.sum(),
+                            "culled": (object_mask & ~m1 & ~m2).sum()}
+        return setup, depth, tri, vis
 
     def _lit_color(self, ctx, surf, depth, xf=None, ao=None):
         """Lighting (B4, with the AO plane when given) of a surf dict, the
@@ -898,23 +992,24 @@ class SceneViewerApplication:
     def _forward_pass(self, ctx):
         """The forward renderer: surface and lighting in one pass."""
         xf = self._transform(ctx)
-        surf, depth = self._raster_surface(ctx, xf, "forward")
+        surf, depth, out = self._raster_surface(ctx, xf, "forward")
         surf = self._apply_decals(ctx, surf)
-        out = {"hdr": self._lit_color(ctx, surf, depth, xf),
-               "depth-main": depth}
+        out.update({"hdr": self._lit_color(ctx, surf, depth, xf),
+                    "depth-main": depth})
         if self._use_taa:
             out["mv"] = self._motion_vectors(ctx, surf, depth)
         return out
 
     def _gbuffer_pass(self, ctx):
-        surf, depth = self._raster_surface(ctx, self._transform(ctx),
-                                           "gbuffer")
+        surf, depth, out = self._raster_surface(ctx, self._transform(ctx),
+                                                "gbuffer")
         surf = self._apply_decals(ctx, surf)
-        out = {"g-base": surf["base_color"], "g-normal": surf["normal"],
-               "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
-                                    dim=-1),
-               "g-emissive": surf["emissive"], "g-pos": surf["pos"],
-               "depth-main": depth, "g-covered": surf["covered"]}
+        out.update({
+            "g-base": surf["base_color"], "g-normal": surf["normal"],
+            "g-pbr": torch.stack([surf["metallic"], surf["roughness"]],
+                                 dim=-1),
+            "g-emissive": surf["emissive"], "g-pos": surf["pos"],
+            "depth-main": depth, "g-covered": surf["covered"]})
         if self._use_taa:
             out["mv"] = self._motion_vectors(ctx, surf, depth)
         return out
@@ -947,7 +1042,8 @@ class SceneViewerApplication:
                        "sh": self.environment.sh,
                        "levels": self.environment.num_levels,
                        "sky_params": self.environment.sky_params,
-                       "tiled": tiled})
+                       "tiled": tiled},
+                  vol_diffuse=self._vol_diffuse)
         if self._has_lights:
             zn, zf = self._cluster_range
             kw.update(lights=p["lights"], z_masks=p["z_masks"],
@@ -973,11 +1069,17 @@ class SceneViewerApplication:
         shadow = ctx.input("shadow-depth") \
             if self.config.directional_light_shadows \
             and not self.config.directional_light_shadows_vsm else None
+        regions = None
+        if self.config.volumetric_fog_regions and \
+                self.scene.fog_region_node:
+            regions = [(volume_transforms(self.scene.world[node])[0], vol)
+                       for node, vol in zip(self.scene.fog_region_node,
+                                            self.scene.fog_region_volume)]
         density = fog_light_density(
             p["inv_view_proj"], self.camera.get_projection(),
             p["camera_pos"], p["sun_dir"], p["sun_color"],
             shadow_map=shadow, shadow_uv_mat=p["shadow_uv_mat"],
-            lights=p.get("lights"))
+            lights=p.get("lights"), regions=regions)
         return {"fog-volume": fog_accumulate(density)}
 
     def _ssao_pass(self, ctx):
@@ -1130,6 +1232,104 @@ class SceneViewerApplication:
             "half_res": bool(self.config.clustered_lights_shadows_half_res)}
         LOGI("Clustered shadow atlas: %d lights, %d slices at %d^2",
              len(infos), len(slices), size)
+
+    def _bake_diffuse_volumes(self):
+        """Bake the ambient-cube probe grid of every diffuse volume of the
+        scene (VolumetricDiffuseLightManager::refresh, done once here
+        instead of incrementally over frame layers).  With none declared,
+        one is created over the scene bounds, as the reference viewer
+        does (scene_viewer_application.cpp:300-309), at
+        volumetricDiffuseResolution along its longest side.  Each probe
+        renders 6 faces (probe_face, then B4 with the sun and the sky)."""
+        t0 = time.monotonic()
+        scene = self.scene
+        if not scene.diffuse_volume_node:
+            mn = scene.r_world_min.min(axis=0)
+            mx = scene.r_world_max.max(axis=0)
+            ext = np.maximum(mx - mn, 1e-3) * 1.1
+            node = scene.create_node(translation=0.5 * (mn + mx), scale=ext)
+            rx = int(self.config.volumetric_diffuse_resolution)
+            res = tuple(max(int(round(rx * r)), 2) for r in ext / ext.max())
+            scene.create_volumetric_diffuse_light(res, node)
+            scene.update_transform_tree()
+        bake = self.bake_inputs()
+        fr = bake["face_res"]
+
+        def render_face(pos, face):
+            surf, params = self.probe_face(bake, pos, face)
+            return shade_surface_fused(surf, params, width=fr, height=fr,
+                                       env=bake["env"])
+
+        volumes = [bake_volume(render_face, scene.world[node], res,
+                               face_res=fr)
+                   for node, res in zip(scene.diffuse_volume_node,
+                                        scene.diffuse_volume_res)]
+
+        def sky(dirs):
+            if self.environment.sky_params:
+                return analytic_sky(dirs, **self.environment.sky_params)
+            return sample_environment(self.environment.strips, dirs,
+                                      torch.zeros(dirs.shape[:-1],
+                                                  device=dirs.device))
+
+        self._vol_diffuse = {"volumes": volumes,
+                             "fallback": fallback_cube_from_sky(
+                                 sky, device=self.device)}
+        # B1's overflow and clamp counters summed over the faces
+        self.bake_stats = bake["stats"]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.bake_seconds = time.monotonic() - t0
+        LOGI("Baked %d volumetric diffuse volume(s), probe res %s, faces "
+             "%d^2, in %.2f s", len(volumes), scene.diffuse_volume_res, fr,
+             self.bake_seconds)
+
+    def bake_inputs(self) -> dict:
+        """What every face of the diffuse bake shares: the scene's world
+        vertices (transformed once, in the current pose), the opaque
+        objects' mask, the face size, the projection (90 degrees, near
+        0.05, infinite far) and the environment (the reference bake's
+        untiled specular route: its env carries no tile sampler)."""
+        n = self.scene.num_nodes
+        world = self.scene.world[:n]
+        _clip, *verts = transform_vertices(
+            self.packed, self._t(world),
+            self._t(np.linalg.inv(world[:, :3, :3]).transpose(0, 2, 1)
+                    .astype(np.float32)), torch.eye(4, device=self.device))
+        return {"verts": verts, "stats": {},
+                "mask": self._t((self.packed.obj_flags & RENDERABLE_OPAQUE)
+                                != 0, torch.bool),
+                "face_res": int(self.config.volumetric_diffuse_face_resolution),
+                "proj": perspective(np.pi / 2, 1.0, 0.05),
+                "env": {"strips": self.environment.strips,
+                        "sh": self.environment.sh,
+                        "levels": self.environment.num_levels,
+                        "sky_params": self.environment.sky_params,
+                        "tiled": False}}
+
+    def probe_face(self, bake: dict, pos, face: int):
+        """One cube face of a probe at `pos`: B1 over the opaque objects
+        (in triangle chunks: a face is one tile, whose list could pass
+        the walk's clamp), the classic resolve and B3 -> (surf, shading
+        params).  B1's overflow and clamp counters add up in
+        bake["stats"]."""
+        wpos, wnrm, wtan = bake["verts"]
+        fr = bake["face_res"]
+        view = look_at_matrix(pos, pos + PROBE_FACE_DIRS[face],
+                              -PROBE_FACE_DV[face])
+        vp = (bake["proj"] @ view).astype(np.float32)
+        setup, _depth, tri, stats = rasterize_scene(
+            self.packed, project(wpos, self._t(vp)), bake["mask"], fr, fr)
+        totals = bake["stats"]
+        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
+            totals[k] = totals.get(k, 0) + stats[k]
+        surf = surface_attributes(self.packed, setup, tri, wpos, wnrm, wtan,
+                                  fr, fr)
+        return surf, {"camera_pos": self._t(pos),
+                      "inv_view_proj": self._t(
+                          np.linalg.inv(vp).astype(np.float32)),
+                      "sun_dir": self._t(self._sun_dir),
+                      "sun_color": self._t(self._sun_color)}
 
     def _collect_lights(self):
         pos, col, rad, dirs, inner, outer, spot = [], [], [], [], [], [], []
@@ -1296,6 +1496,9 @@ class SceneViewerApplication:
                 params["shadow_vp"] = light_vp
                 params["dynamic_shadow_mask"] = self._t(dynamic_mask,
                                                         torch.bool)
+        if self.config.occlusion_culling:
+            params["obj_world_min"] = self._t(scene.r_world_min.copy())
+            params["obj_world_max"] = self._t(scene.r_world_max.copy())
         if self.ocean is not None:
             params["ocean_time"] = self._ocean_time(elapsed_time)
         if self._has_decals:

@@ -9,6 +9,10 @@ PyTorch headers: the build takes seconds, not minutes).  The library
 name carries a hash of the sources and flags, so an edited kernel is
 rebuilt rather than reused.
 
+`build_variant` builds one source with extra `-D` defines into a library
+of its own, under the same flags (the compile probe,
+granite_tpu_torch/tools/compile_parallel_probe.py, times such builds).
+
 Every wrapper counts its launches in `LAUNCHES` (a plain int per
 kernel, incremented only where the kernel is launched), so a run can
 show that the main path went through the kernels.
@@ -60,9 +64,11 @@ SIGNATURES = {
     #     out, stream
     "granite_shade_fused": (_P, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
                             _I, _I, _P, _P),
+    # B5: x, out, n, n_iters, stream
+    "granite_compile_probe": (_P, _P, _L, _I, _P),
 }
 
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B3T": 0, "B4": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B3T": 0, "B4": 0, "B5": 0}
 
 _library = None
 
@@ -121,6 +127,30 @@ def build() -> Path:
     tmp.replace(out)
     for obj in objs:
         obj.unlink()
+    return out
+
+
+def variant_command(nvcc: str, src: Path, defines: dict, out: Path) -> list:
+    """The nvcc command that builds one source, with `-D` defines, into a
+    shared library of its own under the main library's NVCC_FLAGS."""
+    flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
+    return [nvcc, *NVCC_FLAGS, *flags, "-shared", "-o", str(out), str(src)]
+
+
+def build_variant(src: Path, defines: dict, out: Path) -> Path:
+    """Build `src` with extra `-D` defines into the shared library `out`
+    (one nvcc process; rebuilt every call).  Raises on a compiler error.
+    The main library keeps its own one-nvcc-per-source build (build())."""
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built (PATH, CUDA_HOME, /usr/local/cuda)")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = variant_command(nvcc, src, defines, out)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     return out
 
 

@@ -5,7 +5,9 @@ fog_accumulate compute shaders).
   * slice mapping: world_z = exp2(tz / s) - 1 with
     s = 1 / log2(1 + z_range);
   * per-froxel albedo = density_mod * slice_extent(z) * length_mod *
-    density (the uniform 0.1 density; fog regions are not ported);
+    density: the uniform 0.1, or with fog regions (FOG_REGIONS) the sum
+    over unit-box regions of an edge fade times the region's optional
+    density grid;
   * in-scatter: the sun (through the 2x2 PCF shadow term) and every
     positional light, each with the phase 0.55 - 0.45 * dot(view, L);
   * accumulation: a 17-tap edge-clamped smoothing, then the scattering
@@ -42,12 +44,58 @@ def world_to_texture_z(world_z, s):
     return torch.log2(1.0 + world_z.clamp_min(0.0)) * s
 
 
+def _trilerp3_clamp(vol, local):
+    """Trilinear sample of a (Dz, Hy, Wx) density grid at local [0,1]^3
+    coords (LinearClampSampler semantics)."""
+    dz, hy, wx = vol.shape
+    x = (local[..., 0] * wx - 0.5).clamp(0, wx - 1)
+    y = (local[..., 1] * hy - 0.5).clamp(0, hy - 1)
+    z = (local[..., 2] * dz - 0.5).clamp(0, dz - 1)
+    x0f, y0f, z0f = clamped_floor(x, wx - 1), clamped_floor(y, hy - 1), \
+        clamped_floor(z, dz - 1)
+    x0, y0, z0 = x0f.long(), y0f.long(), z0f.long()
+    x1 = (x0 + 1).clamp_max(wx - 1)
+    y1 = (y0 + 1).clamp_max(hy - 1)
+    z1 = (z0 + 1).clamp_max(dz - 1)
+    fx, fy, fz = x - x0f, y - y0f, z - z0f
+    cx0 = (vol[z0, y0, x0] * (1 - fx) + vol[z0, y0, x1] * fx,
+           vol[z0, y1, x0] * (1 - fx) + vol[z0, y1, x1] * fx)
+    cx1 = (vol[z1, y0, x0] * (1 - fx) + vol[z1, y0, x1] * fx,
+           vol[z1, y1, x0] * (1 - fx) + vol[z1, y1, x1] * fx)
+    cy0 = cx0[0] * (1 - fy) + cx0[1] * fy
+    cy1 = cx1[0] * (1 - fy) + cx1[1] * fy
+    return cy0 * (1 - fz) + cy1 * fz
+
+
+def region_fog_density(pos, regions):
+    """compute_fog_density with FOG_REGIONS (fog_light_density.comp
+    :20-60): the sum over unit-box regions (world_to_tex (3, 4), density
+    grid (D, H, W) or None) of fade(local) * the grid's sample; the fade
+    ramps to 0 over the outer 1/16 of the box (8 * (0.5 - max|local -
+    0.5|))."""
+    wp1 = torch.cat([pos, torch.ones_like(pos[..., :1])], dim=-1)
+    density = torch.zeros(pos.shape[:-1], dtype=torch.float32,
+                          device=pos.device)
+    for w2t, vol in regions:
+        local = wp1 @ torch.as_tensor(w2t, dtype=torch.float32,
+                                      device=pos.device).T
+        xmax = (local - 0.5).abs().amax(-1)
+        fade = (8.0 * (0.5 - xmax)).clamp(0.0, 1.0)
+        if vol is not None:
+            fade = fade * _trilerp3_clamp(torch.as_tensor(
+                vol, dtype=torch.float32, device=pos.device), local)
+        density = density + fade
+    return density
+
+
 def fog_light_density(inv_view_proj, proj, camera_pos, sun_dir, sun_color,
                       shadow_map=None, shadow_uv_mat=None, lights=None,
-                      grid=(DEFAULT_D, DEFAULT_H, DEFAULT_W)):
+                      grid=(DEFAULT_D, DEFAULT_H, DEFAULT_W), regions=None):
     """-> (D, H, W, 4) light-density volume: rgb = in-scattered light,
     a = extinction albedo.  proj: the host (4, 4) camera projection;
-    shadow_map: an (S, S) sun depth map or None."""
+    shadow_map: an (S, S) sun depth map or None; regions: a list of
+    (world_to_tex, density grid or None) fog regions, or None for the
+    uniform density."""
     D, H, W = grid
     dev = inv_view_proj.device
     s = slice_z_log2_scale(Z_RANGE)
@@ -95,8 +143,12 @@ def fog_light_density(inv_view_proj, proj, camera_pos, sun_dir, sun_color,
     xs = 1.0 / abs(float(proj[0, 0]))
     ys = 1.0 / abs(float(proj[1, 1]))
     length_mod = torch.sqrt(1.0 + (ndc_x * xs) ** 2 + (ndc_y * ys) ** 2)
-    albedo = DENSITY_MOD * FOG_DENSITY * extents[:, None, None] \
-        * length_mod[None]
+    if regions is not None:
+        dens = region_fog_density(pos, regions)               # (D, H, W)
+    else:
+        dens = torch.full((D, H, W), FOG_DENSITY, dtype=torch.float32,
+                          device=dev)
+    albedo = DENSITY_MOD * dens * extents[:, None, None] * length_mod[None]
     return torch.cat([light * INSCATTER_MOD, albedo[..., None]], dim=-1)
 
 

@@ -12,7 +12,10 @@ reference's SoA mesh pools).  Per frame:
      then kernel B4 for the whole shade expression.
 
 Shadow maps (sun and clustered-light atlas) are depth-only rasters
-through kernel B1.
+through kernel B1.  The classic route (rasterize_scene: B1 on a camera
+view, then surface_attributes: the visibility-buffer resolve and B3)
+serves occlusion culling and the volumetric diffuse bake, as it does in
+the reference.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ from ..assets.texture_array import (
 from ..ops import raster as R
 from ..ops.hdr import resize_bilinear, uv_grid
 from ..ops.light_shadows import topk_shadow_terms
-from ..ops.raster_binned import SPAN_H, SPAN_W, TILE_H, TILE_W, \
-    rasterize_binned
+from ..ops.raster_binned import rasterize_binned
 from ..ops.raster_fused import (
     PLANE_BASE, PLANE_BUNDLE, PLANE_COVERED, PLANE_DEPTH, PLANE_DUVDX,
     PLANE_DUVDY, PLANE_EMISSIVE, PLANE_MR, PLANE_NRM, PLANE_POS, PLANE_PREV,
@@ -51,6 +53,8 @@ from ..scene.scene import (
 from ..scene.scene_formats import ALPHA_MODE_BLEND, SceneInfo
 from ..utils.logging import LOGI
 from .environment import analytic_sky, eval_sh9, sample_environment
+from .raster_dispatch import bin_window, rasterize_binned_exact
+from .volumetric_diffuse import sample_volumetric_diffuse
 
 MATERIAL_CHANNELS = 12   # base rgba | mr g,b | normal xyz | emissive rgb
 
@@ -487,12 +491,6 @@ def material_shade_tail(scene, pos, nrm, tan, uv, duvdx, duvdy,
     return out
 
 
-def bin_window(width: int, height: int):
-    """Bin window: the wide 2x8 one for large tile grids (> 512 tiles)."""
-    ntiles = (-(-width // TILE_W)) * (-(-height // TILE_H))
-    return (2, 8) if ntiles > 512 else (SPAN_W, SPAN_H)
-
-
 def _resolve_surface(scene, setup, world_pos, world_normal, world_tangent,
                      width, height, lod_bias, prev_world_pos, max_visible,
                      material_textures):
@@ -536,6 +534,78 @@ def fused_raster_surface(scene: PackedScene, clip, object_mask,
     return _resolve_surface(scene, setup, world_pos, world_normal,
                             world_tangent, width, height, lod_bias,
                             prev_world_pos, max_visible, material_textures)
+
+
+def rasterize_scene(scene: PackedScene, clip, object_mask, width: int,
+                    height: int, cull_mode: int = R.CULL_BACK):
+    """Setup + per-object visibility + kernel B1 (its plain version on
+    CPU tensors) -> (setup, depth, tri, raster stats): the visibility
+    buffer of the classic route, with no triangle dropped (B1 over
+    triangle chunks, raster_dispatch.rasterize_binned_exact)."""
+    setup = R.setup_triangles(clip, scene.indices, width, height,
+                              cull_mode=cull_mode)
+    setup = setup._replace(
+        valid=setup.valid & object_mask[scene.tri_object.long()])
+    return (setup, *rasterize_binned_exact(setup, width, height))
+
+
+def surface_attributes(scene: PackedScene, setup, tri, world_pos,
+                       world_normal, world_tangent, width: int, height: int,
+                       lod_bias: float = 0.0, prev_world_pos=None,
+                       material_textures: bool = True):
+    """Visibility-buffer resolve of the classic route: every pixel
+    gathers its triangle's packed row (adjugate, offset, the corners'
+    attributes, material factors), interpolates perspective-correct with
+    analytic screen derivatives, then the material fetch (kernel B3) and
+    normal mapping.  Uncovered pixels take triangle 0's extrapolated
+    attributes (t = max(tri, 0)), as the reference's classic resolve
+    does; their `covered` is False.  -> surf dict [+ prev_pos]."""
+    dev = world_pos.device
+    px, py = R.pixel_centers(width, height, dev)
+    covered = tri >= 0
+    T_ = scene.indices.shape[0]
+    attrs = [world_pos, world_normal, world_tangent, scene.uvs]    # 12
+    if prev_world_pos is not None:
+        attrs.append(prev_world_pos)                               # +3
+    vattrs = torch.cat(attrs, dim=1)                               # (V, A)
+    A = vattrs.shape[1]
+    corner = vattrs[scene.indices.long()].reshape(T_, 3 * A)
+    mat = scene.tri_material.long()
+    tri_pack = torch.cat([
+        setup.adj.reshape(T_, 9), setup.offset, corner,
+        scene.mat_base_color[mat], scene.mat_mr[mat],
+        scene.mat_bundle[mat].to(torch.float32)[:, None],
+        scene.mat_emissive[mat]], dim=1)                   # (T, 21 + 3A)
+    row = tri_pack[tri.clamp_min(0).long()]                # (H, W, 21 + 3A)
+    adj = row[..., 0:9].reshape(row.shape[:-1] + (3, 3))
+    off = row[..., 9:11]
+    m0 = 11 + 3 * A
+    av = row[..., 11:m0].reshape(row.shape[:-1] + (3, A))
+
+    rx = (px - off[..., 0])[..., None]
+    ry = (py - off[..., 1])[..., None]
+    lam = adj[..., 0] * rx + adj[..., 1] * ry + adj[..., 2]
+    D = lam.sum(-1)
+    Dx = adj[..., 0].sum(-1)
+    Dy = adj[..., 1].sum(-1)
+    N = (av * lam[..., None]).sum(-2)
+    Nx = (av * adj[..., 0][..., None]).sum(-2)
+    Ny = (av * adj[..., 1][..., None]).sum(-2)
+    D = torch.where(D.abs() < 1e-20, torch.full_like(D, 1e-20), D)[..., None]
+    vals = N / D
+    ddx = (Nx - vals * Dx[..., None]) / D
+    ddy = (Ny - vals * Dy[..., None]) / D
+    # uv as two contiguous planes: B3 reads u and v as rows
+    uv = vals[..., 10:12].movedim(-1, 0).contiguous().movedim(0, -1)
+    return material_shade_tail(
+        scene, pos=vals[..., 0:3], nrm=vals[..., 3:6], tan=vals[..., 6:10],
+        uv=uv, duvdx=ddx[..., 10:12], duvdy=ddy[..., 10:12],
+        base_factor=row[..., m0:m0 + 4], mr_factor=row[..., m0 + 4:m0 + 6],
+        bundle_id=row[..., m0 + 6].to(torch.int32),
+        emissive_factor=row[..., m0 + 7:m0 + 10], covered=covered,
+        lod_bias=lod_bias,
+        prev_pos=vals[..., 12:15] if prev_world_pos is not None else None,
+        textures=material_textures)
 
 
 def _safe_w(w):
@@ -613,16 +683,22 @@ def material_lod(scene, duvdx, duvdy, lod_bias: float):
 
 
 def compute_env_products(surf, params, env, width: int, height: int,
-                         background):
+                         background, vol_diffuse=None):
     """(irradiance/pi, specular env (B3), background) per pixel.  Under
     the analytic sky, env["tiled"] (default on) picks the reference's
     route: the full-resolution fetch of its tile sampler, or its untiled
-    route, the fetch at every other pixel and a bilinear upsample."""
+    route, the fetch at every other pixel and a bilinear upsample.
+    vol_diffuse ({"volumes", "fallback"}): the baked probe volumes give
+    the irradiance instead of the SH sky (their probes carry the 1/pi)."""
     n = surf["normal"]
     pos = surf["pos"]
     cov = surf["covered"]
     cam = params["camera_pos"]
-    irr = eval_sh9(env["sh"], n).clamp_min(0.0) / math.pi
+    if vol_diffuse is not None:
+        irr = sample_volumetric_diffuse(vol_diffuse["volumes"], pos, n,
+                                        vol_diffuse["fallback"])
+    else:
+        irr = eval_sh9(env["sh"], n).clamp_min(0.0) / math.pi
     refl, lod = reflection(surf, cam, env["levels"])
     if background is None and width and height:
         px, py = R.pixel_centers(width, height, pos.device)
@@ -640,9 +716,10 @@ def compute_env_products(surf, params, env, width: int, height: int,
                 spec_env = sample_environment(env["strips"], refl, lod,
                                               covered=cov)
             else:
+                # (B3 reads lod as rows of contiguous elements)
                 spec_env = resize_bilinear(sample_environment(
-                    env["strips"], refl[::2, ::2], lod[::2, ::2]),
-                    height, width)
+                    env["strips"], refl[::2, ::2],
+                    lod[::2, ::2].contiguous()), height, width)
         else:
             dirs = torch.where(cov[..., None], refl, view_dirs)
             lod = torch.where(cov, lod, torch.zeros_like(lod))
@@ -666,7 +743,8 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
                  height: int = 0, background=None, z_near: float = 0.1,
                  z_far: float = 1000.0, env=None, cluster_shadows=None,
                  ao=None, shadow_tiled: bool = False,
-                 shadow_half_res: bool = False, view=None):
+                 shadow_half_res: bool = False, view=None,
+                 vol_diffuse=None):
     """Kernel B4's inputs for a surf dict: the gather-bound products
     (shadow term, env products through B3, top-K atlas terms) stacked
     with the G-buffer into padded planes, the light table, tile masks
@@ -687,7 +765,8 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
     has_env = env is not None
     if has_env:
         irr, spec_env, bg = compute_env_products(surf, params, env, width,
-                                                 height, background)
+                                                 height, background,
+                                                 vol_diffuse)
     else:
         irr = spec_env = torch.zeros((H, W, 3), device=dev)
         bg = torch.broadcast_to(

@@ -8,10 +8,12 @@ cull over all AABBs; RENDERABLE_DYNAMIC splits the shadow casters into
 the cached static set and the per-frame dynamic set (skinned meshes).
 Morph-target weights ride node_morph_weights, written by the animation
 system.  Volumetric decals are unit boxes on nodes
-(create_volumetric_decal, gather_visible_volumetric_decals).  The
-original's ECS entity pool, fog regions and diffuse volumes are left
-out: no path of the port reads them, so a decal's entity is its
-VolumetricDecalComponent alone.  tests/test_torch_host_copies.py holds
+(create_volumetric_decal, gather_visible_volumetric_decals), and so are
+volumetric fog regions (create_volumetric_fog_region, with an optional
+density grid) and diffuse GI volumes (create_volumetric_diffuse_light,
+with their probe resolution).  The original's ECS entity pool is left
+out: no path of the port reads it, so a decal's entity is its
+VolumetricDecalComponent alone and the regions and volumes have none.  tests/test_torch_host_copies.py holds
 this copy equal to the original.
 """
 
@@ -67,6 +69,15 @@ class Scene:
         self.decal_node: list[int] = []
         self.decal_tex: list[int] = []
         self.decal_entity: list = []
+        # Volumetric diffuse GI volumes (scene.cpp create_volumetric_
+        # diffuse_light): (node, (X, Y, Z) probe resolution).
+        self.diffuse_volume_node: list[int] = []
+        self.diffuse_volume_res: list[tuple] = []
+        # Volumetric fog regions (scene.cpp create_volumetric_fog_region,
+        # lights/volumetric_fog_region.hpp): unit boxes with an optional
+        # (D, H, W) density grid.
+        self.fog_region_node: list[int] = []
+        self.fog_region_volume: list = []
 
     # -- node management --------------------------------------------------------
     def _grow_nodes(self) -> None:
@@ -202,6 +213,27 @@ class Scene:
         self.decal_node.append(node)
         self.decal_tex.append(tex_id)
         self.decal_entity.append(VolumetricDecalComponent(idx))
+        return idx
+
+    def create_volumetric_fog_region(self, node: int,
+                                     density_volume=None) -> int:
+        """Attach a unit-box fog region to `node`
+        (Scene::create_volumetric_fog_region).  density_volume: optional
+        (D, H, W) float grid sampled in the region's texture space
+        (VolumetricFogRegion::set_volume); None = constant 1."""
+        idx = len(self.fog_region_node)
+        self.fog_region_node.append(node)
+        self.fog_region_volume.append(density_volume)
+        return idx
+
+    def create_volumetric_diffuse_light(self, resolution, node: int) -> int:
+        """Attach an ambient-cube probe grid volume to `node`
+        (Scene::create_volumetric_diffuse_light; the reference viewer
+        creates one scaled (32, 8, 32) over the scene,
+        scene_viewer_application.cpp:300-309)."""
+        idx = len(self.diffuse_volume_node)
+        self.diffuse_volume_node.append(node)
+        self.diffuse_volume_res.append(tuple(int(r) for r in resolution))
         return idx
 
     def gather_visible_volumetric_decals(self, frustum) -> np.ndarray:

@@ -367,6 +367,36 @@ def test_scene_volumetric_decals():
             empty[1].gather_visible_volumetric_decals(JF.Frustum(vp)))
 
 
+def test_scene_fog_regions_and_diffuse_volumes():
+    """create_volumetric_fog_region (with and without a density grid) and
+    create_volumetric_diffuse_light on nodes of both Scene classes."""
+    rng = _rng()
+    scenes = TS.Scene(), JS.Scene()
+    for _ in range(6):
+        t = rng.normal(size=3) * 12
+        s = rng.uniform(0.3, 40, size=3)
+        for sc in scenes:
+            sc.create_node(translation=t, scale=s)
+    grid = rng.uniform(0, 2, (3, 4, 5)).astype(np.float32)
+    for k, (node, vol) in enumerate(((0, None), (3, grid), (5, None))):
+        assert [sc.create_volumetric_fog_region(node, vol)
+                for sc in scenes] == [k, k]
+    for k, (node, res) in enumerate(((1, (8, 2, 8)), (4, [3.0, 2, 5]))):
+        assert [sc.create_volumetric_diffuse_light(res, node)
+                for sc in scenes] == [k, k]
+    a, b = scenes
+    assert a.fog_region_node == b.fog_region_node == [0, 3, 5]
+    assert [v is None for v in a.fog_region_volume] == \
+        [v is None for v in b.fog_region_volume] == [True, False, True]
+    _eq(a.fog_region_volume[1], b.fog_region_volume[1])
+    assert a.diffuse_volume_node == b.diffuse_volume_node == [1, 4]
+    assert a.diffuse_volume_res == b.diffuse_volume_res \
+        == [(8, 2, 8), (3, 2, 5)]
+    for sc in scenes:
+        sc.update_transform_tree()
+    _eq(a.world[:6], b.world[:6])
+
+
 def test_bench_scene_built_through_both():
     """build_bench_scene through the port's copies (muglm, mesh_util,
     scene_formats) equals the JAX package's, mesh by mesh."""

@@ -37,14 +37,18 @@ def test_port_imports_without_jax():
                  if line.startswith(("MODULES", "NAMES", "JAX",
                                      "GRANITE_TPU")))
     assert int(lines["MODULES"]) >= 20
-    # the ocean, terrain, decal and meshlet modules and the stat sink
-    # (the native codec's loader included) are among them
+    # the ocean, terrain, decal and meshlet modules, the stat sink (the
+    # native codec's loader included), the occlusion and volume modules
+    # and the compile probe are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
         "renderer.ground", "renderer.ocean", "scene.gltf",
         "scene.scene_loader", "scene.animation", "scene_export",
         "scene_export.gltf_export", "scene_export.camera_export",
-        "utils.timer", "utils.image_compare", "app.video_sink")} \
+        "utils.timer", "utils.image_compare", "app.video_sink",
+        "ops.hiz", "renderer.raster_dispatch",
+        "renderer.volumetric_diffuse", "tools",
+        "tools.compile_parallel_probe")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
