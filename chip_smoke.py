@@ -34,8 +34,11 @@
      B5 the compile probe's body at its four shapes (n_iters 96-99 over
         (256-640, 256) f32): bit-equal.
      B1 on the occlusion path's phase 1 at 1920x1080 (CULL_BACK, the
-        main camera, last frame's visible set): exact.
-     B4 on one 8x8 face of the volumetric diffuse bake (no lights, no
+        main camera, last frame's visible set) and on the volumetric
+        path's 8x8 bake face with the most valid triangles (one tile, a
+        chunk of up to 65,536 triangles), each on the first triangle
+        chunk the path bins: exact.
+     B4 on that 8x8 face of the volumetric diffuse bake (no lights, no
         shadow map): 3e-4 relative.
    Timing: a kernel's ms is device time, CUDA events around the replay
    of a CUDA graph that captured N calls of its wrapper (the wrapper's
@@ -53,13 +56,11 @@
    texel of their 2x2 footprints.
 3. Main paths, each with the launch counts set to 0 just before it and
    read just after: SceneViewerApplication(device="cuda") on the bench
-   scene at 1920x1080, 2 warm-up frames then 12 frames through
+   scene at 1920x1080, 2 warm-up frames then 8 frames through
    render_frames_chained, ms/frame from CUDA events and the host clock;
    image gate, launch counts (every kernel of the path > 0) and the
-   raster overflow counters; then 4 more frames under torch.profiler give
+   raster overflow counters; then 2 more frames under torch.profiler give
    the device's busy time a frame, and 1 - busy / ms its idle share.
-   The seven paths of earlier slices run 6 timed and 2 traced frames
-   (OLD_FRAMES), so the whole script stays inside its time.
      deferred:      the bench config (deferred HDR), camera orbiting
                     (camera_orbit=0.01).
      forward:       the bench config with the forward renderer, VSM sun
@@ -95,11 +96,12 @@
                     two at 0 s agree.  After its counts are read, B1 is
                     held against its plain version on the frame's
                     dynamic casters (2048^2).
-     occlusion:     the bench config with occlusionCulling: B1 twice a
-                    frame on the main camera (two-phase HiZ culling), the
-                    classic resolve, B3, B4, orbiting from a walk-through
-                    camera at eye height in the scene's corner.  B1 must launch at
-                    least twice in every timed frame, both phases'
+     occlusion:     the bench config with occlusionCulling: B1 in each
+                    of the two phases of HiZ culling on the main camera
+                    (a launch per 65,536 valid triangles), the classic
+                    resolve, B3, B4, orbiting from a walk-through camera
+                    at eye height in the scene's corner.  B1 must launch
+                    at least twice in every timed frame, both phases'
                     overflow and clamp counters read 0, some timed frame
                     must cull an object, and the two timed frames that
                     culled most, rendered again with every object in
@@ -167,7 +169,7 @@ ANIM_CONFIG = {**BENCH_CONFIG,
                "rasterMaxVisible": 163840 + len(CHARACTERS) * 24576 + 8192}
 # The bench glTF's camera: in front of the characters, looking at them.
 ANIM_EYE, ANIM_TARGET = (0.0, 5.5, 16.0), (0.0, 1.5, 0.0)
-# Two-phase HiZ occlusion culling: B1 twice a frame on the main camera,
+# Two-phase HiZ occlusion culling: B1 in both phases on the main camera,
 # here a walk-through view at eye height from the scene's corner (the
 # bench camera looks down on the whole scene from outside it, where no
 # object hides another: it culls 0 of the 144 objects on the card).
@@ -178,9 +180,6 @@ OCCLUSION_EYE, OCCLUSION_TARGET = (12.0, 1.2, 12.0), (0.0, 0.5, 0.0)
 VOLUMES_OFF = {**BENCH_CONFIG, "volumetricFog": True}
 VOLUMES_CONFIG = {**VOLUMES_OFF, "volumetricFogRegions": True,
                   "volumetricDiffuse": True}
-# The paths of earlier slices run at a smaller depth (timed and traced
-# frames), so the whole script stays well inside its time limit.
-NEW_PATHS = ("occlusion", "volumetric")
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -238,9 +237,8 @@ B2_WINNER_LANES, B2_PREV_WINNER_LANES = 55, 64
 # and floored coordinates, the lod's clamp, floor and frac).
 B3_OPS, B3_PIXEL_OPS = 12, 15
 WIDTH, HEIGHT = 1920, 1080
-WARMUP, FRAMES, ORBIT = 2, 12, 0.01
-TRACED_FRAMES = 4
-OLD_FRAMES, OLD_TRACED_FRAMES = 6, 2
+WARMUP, FRAMES, ORBIT = 2, 8, 0.01
+TRACED_FRAMES = 2
 FRAME_TIME = 1.0 / 60.0
 PSNR_GATE_DB = 48.0
 # id -> (source, TPU kernel it replaces, its CUDA kernels' attribute
@@ -613,26 +611,30 @@ def b5_cases() -> dict:
     return dict(cases[0], cases=cases[1:])
 
 
-def b1_main_view_args(app, params, vis):
-    """B1's inputs for the occlusion path's phase 1 on its camera's
-    1920x1080 main view: CULL_BACK setup, the frustum-visible objects of
-    last frame's visible set `vis`, the viewport's bin window."""
+def view_setup(app, clip, object_mask, width: int, height: int):
+    """A camera view's triangle setup on the classic route: CULL_BACK,
+    valid only for the triangles of object_mask's objects."""
     from granite_tpu_torch.ops import raster as R
-    from granite_tpu_torch.ops import raster_binned as RB
-    from granite_tpu_torch.renderer import scene_renderer as SR
     packed = app.packed
-    ext = params["external"]
-    clip, _wpos, _wnrm, _wtan = SR.transform_vertices(
-        packed, ext["world"], ext["normal_mats"], params["view_proj"])
-    setup = R.setup_triangles(clip, packed.indices, WIDTH, HEIGHT,
+    setup = R.setup_triangles(clip, packed.indices, width, height,
                               cull_mode=R.CULL_BACK)
-    mask = params["object_mask"] & vis
-    setup = setup._replace(valid=setup.valid & mask[packed.tri_object.long()])
-    span_w, span_h = SR.bin_window(WIDTH, HEIGHT)
-    pk, st, hr, hs = RB.bin_triangles(setup, WIDTH, HEIGHT, span_w=span_w,
-                                      span_h=span_h)[:4]
-    return (st, hs, pk, hr, -(-WIDTH // RB.TILE_W), -(-HEIGHT // RB.TILE_H),
-            span_w, span_h)
+    return setup._replace(
+        valid=setup.valid & object_mask[packed.tri_object.long()])
+
+
+def b1_chunk_args(setup, width: int, height: int):
+    """B1's inputs on the first chunk of a view's valid triangles (up to
+    MAX_ENTRIES_PER_TILE), binned with the view's bin window, as
+    raster_dispatch.rasterize_binned_exact bins them.  -> (args, valid
+    triangles of the view, its chunks)."""
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import raster_dispatch as RD
+    chunks = RD.valid_chunks(setup)
+    span_w, span_h = RD.bin_window(width, height)
+    pk, st, hr, hs = RB.bin_triangles(chunks[0][1], width, height,
+                                      span_w=span_w, span_h=span_h)[:4]
+    return ((st, hs, pk, hr, -(-width // RB.TILE_W), -(-height // RB.TILE_H),
+             span_w, span_h), int(setup.valid.sum()), len(chunks))
 
 
 def occlusion_app():
@@ -648,32 +650,58 @@ def occlusion_app():
 def slice_kernel_phases(results: dict) -> None:
     """B5 at the probe's shapes; B1 on the occlusion path's phase 1 at
     1920x1080 (after one culled frame, so its visible set is last
-    frame's); B4 on one 8x8 face of the diffuse bake (no lights, no
-    shadow map), from a probe at the bench scene's center."""
-    import numpy as np
+    frame's); B1 and B4 on the 8x8 face of the volumetric path's bake
+    (the viewer's default volume over the bench scene, (8, 2, 8) probes)
+    with the most valid triangles (opaque objects): B1 on its first
+    chunk, B4 with no lights and no shadow map."""
     import torch
+    from granite_tpu_torch.ops.raster_binned import MAX_ENTRIES_PER_TILE
     from granite_tpu_torch.renderer import scene_renderer as SR
+    from granite_tpu_torch.renderer import volumetric_diffuse as VD
     results["B5"] = b5_cases()
     app = occlusion_app()
     app.swapchain_updated(WIDTH, HEIGHT)
     app.render_frames_chained(FRAME_TIME, 0.0, 1)
     vis = app._history["vis-history"]
     params = app._param_cache[1]
-    main = b1_case(b1_main_view_args(app, params, vis),
-                   "main view 1920x1080, occlusion phase 1")
-    results["B1"]["cases"].append(main)
+    ext = params["external"]
+    clip = SR.transform_vertices(app.packed, ext["world"],
+                                 ext["normal_mats"], params["view_proj"])[0]
+    args, n_valid, n_chunks = b1_chunk_args(
+        view_setup(app, clip, params["object_mask"] & vis, WIDTH, HEIGHT),
+        WIDTH, HEIGHT)
+    main = b1_case(args, f"main view 1920x1080, occlusion phase 1, chunk 1 "
+                   f"of {n_chunks} ({n_valid} valid triangles)")
+    app.declare_diffuse_volume()
+    scene = app.scene
+    t2w = VD.volume_transforms(scene.world[scene.diffuse_volume_node[0]])[1]
+    probes = VD.probe_positions(t2w, scene.diffuse_volume_res[0]) \
+        .reshape(-1, 3)
     bake = app.bake_inputs()
-    mn = app.scene.r_world_min.min(axis=0)
-    mx = app.scene.r_world_max.max(axis=0)
-    center = (0.5 * (mn + mx)).astype(np.float32)
-    surf, face_params = app.probe_face(bake, center, 0)
     fr = bake["face_res"]
+
+    def face_setup(pos, f):
+        return view_setup(app, app.probe_face_view(bake, pos, f)[1],
+                          bake["mask"], fr, fr)
+
+    counts = torch.stack([face_setup(pos, f).valid.sum() for pos in probes
+                          for f in range(6)]).cpu()
+    heaviest = int(counts.argmax())
+    pos, f = probes[heaviest // 6], heaviest % 6
+    args, n_valid, n_chunks = b1_chunk_args(face_setup(pos, f), fr, fr)
+    over = int((counts > MAX_ENTRIES_PER_TILE).sum())
+    bake_face = b1_case(args, f"diffuse bake face {fr}x{fr} (probe "
+                        f"{heaviest // 6} face {f}, the heaviest of "
+                        f"{len(counts)}; {over} hold > "
+                        f"{MAX_ENTRIES_PER_TILE}), chunk 1 of {n_chunks} "
+                        f"({n_valid} valid triangles)")
+    surf, face_params = app.probe_face(bake, pos, f)
     args, kkw = SR.shade_inputs(surf, face_params, width=fr, height=fr,
                                 env=bake["env"])
     check(not kkw["has_lights"] and kkw["has_env"], "B4 bake face flags")
     face = b4_compare(args, kkw, f"diffuse bake face {fr}x{fr}")
-    results["B4"]["cases"].append(face)
-    for k, case in (("B1", main), ("B4", face)):
+    for k, case in (("B1", main), ("B1", bake_face), ("B4", face)):
+        results[k]["cases"].append(case)
         results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
                                         case["max_abs_err"])
     del app
@@ -1190,8 +1218,6 @@ def main_path(name: str, results: dict) -> dict:
     from granite_tpu_torch.kernels import build as K
 
     cfg, required = MAIN_PATHS[name]
-    frames, traced = (FRAMES, TRACED_FRAMES) if name in NEW_PATHS \
-        else (OLD_FRAMES, OLD_TRACED_FRAMES)
     K.reset_launch_counts()
     t0 = time.monotonic()
     if name == "gltf_animated":
@@ -1237,15 +1263,15 @@ def main_path(name: str, results: dict) -> dict:
     app.graph.execute = counted
     t1 = time.monotonic()
     start.record()
-    out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, frames,
+    out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, FRAMES,
                                     camera_orbit=ORBIT)
     end.record()
     torch.cuda.synchronize()
-    host_ms = (time.monotonic() - t1) * 1e3 / frames
-    ms = start.elapsed_time(end) / frames
+    host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
+    ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
     del app.graph.execute
-    busy_ms, ranges = device_busy_ms(app, traced)
+    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
@@ -1254,15 +1280,15 @@ def main_path(name: str, results: dict) -> dict:
     camera = "still, jittered" if app._jitter is not None else "orbiting"
     log(f"main path {name} {WIDTH}x{HEIGHT} (renders {app._rw}x{app._rh}):"
         f" {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
-        f"clock) over {frames} frames, camera {camera}; setup + {WARMUP} "
+        f"clock) over {FRAMES} frames, camera {camera}; setup + {WARMUP} "
         f"warm-up frames {setup_s:.1f} s; device busy {busy_ms:.3f} "
-        f"ms/frame over {traced} traced frames, idle share "
+        f"ms/frame over {TRACED_FRAMES} traced frames, idle share "
         f"{1.0 - busy_ms / ms:.3f} of the untraced frame")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
         f"nan={int(np.isnan(img.astype(np.float32)).sum())}")
     log(f"device ms a frame by range {name} "
         f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
-    log(f"launches {name} {launches}; B1 in each of the {frames} timed "
+    log(f"launches {name} {launches}; B1 in each of the {FRAMES} timed "
         f"frames {b1_frames}")
     # max_bin_entries and the overflow/clamp counters: printed, gated only
     # on the time-varying paths (the reference clamps and drops the same
@@ -1276,8 +1302,8 @@ def main_path(name: str, results: dict) -> dict:
     if name == "volumetric":
         volumes_check(app)
     if name == "gltf_animated":
-        check(len(b1_frames) == frames and min(b1_frames) >= 1,
-              f"B1 launches in the {frames} timed frames: {b1_frames}")
+        check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
+              f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
         time_check(app, stats, "animation", 1.0)
         # host side of a frame: pose, palette, culling, params, uploads
         t = time.monotonic()
@@ -1381,9 +1407,6 @@ def main() -> int:
         "timing": "ms: device time, CUDA graph of N wrapper calls replayed "
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
-        "frames_per_path": {p: WARMUP + (FRAMES if p in NEW_PATHS
-                                         else OLD_FRAMES)
-                            for p in MAIN_PATHS},
         "compile_probe": probe_result,
         "kernels": kernels}))
     print(card)

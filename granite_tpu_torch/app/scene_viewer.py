@@ -21,10 +21,11 @@ grid displaced at vertex transform by the elapsed time) and the terrain
 join the scene before it is packed; meshEncoding "meshlet" re-encodes the
 static meshes through the MLT2 codec; volumetric decals blend into the
 resolved base color before lighting.  occlusionCulling takes the
-surface through two-phase HiZ culling (B1 twice a frame, then the classic
-resolve), its per-object visibility set carried as vis-history;
-volumetricFogRegions bounds the froxel fog to unit-box regions (a
-default one at scale 40); volumetricDiffuse bakes ambient-cube probe
+surface through two-phase HiZ culling (B1 in each phase, a launch per
+65,536 valid triangles, then the classic resolve), its per-object
+visibility set carried as vis-history; volumetricFogRegions bounds the
+froxel fog to unit-box regions (a default one at scale 40);
+volumetricDiffuse bakes ambient-cube probe
 volumes at set-up (B1, the classic resolve, B3, B4 on small cube faces)
 whose irradiance replaces the SH sky's.  Kernels: B1 for the sun shadow
 map, the clustered light shadow atlas and the culled main view, B2 + B3
@@ -90,13 +91,13 @@ from ..renderer.ground import (
     GroundLOD, fbm_heightmap, flat_grid_mesh, ground_mesh,
 )
 from ..renderer.ocean import Ocean, OceanConfig
-from ..renderer.raster_dispatch import rasterize_binned_checked
 from ..renderer.render_context import RenderContext
 from ..renderer.scene_renderer import (
     BLOCK_MORPH_SKIN, BLOCK_SKIN, PackedScene, fused_raster_surface,
-    mesh_instances, motion_vectors, pack_scene, project, rasterize_scene,
-    render_shadow_map, shade_surface_fused, surface_attributes,
-    transform_vertices, transparent_composite, world_positions,
+    mesh_instances, motion_vectors, pack_scene, project, rasterize_objects,
+    rasterize_scene, render_shadow_map, shade_surface_fused,
+    surface_attributes, transform_vertices, transparent_composite,
+    world_positions,
 )
 from ..renderer.volumetric_diffuse import (
     FACE_DIRS as PROBE_FACE_DIRS, FACE_DV as PROBE_FACE_DV, bake_volume,
@@ -870,8 +871,9 @@ class SceneViewerApplication:
     def _raster_surface(self, ctx, xf, stats_key: str):
         """Raster + resolve (B2) + material fetch (B3) of the opaque
         queue -> (surf, depth, extra pass outputs).  Under occlusion
-        culling: the two-phase cull's visibility buffer (B1 twice), the
-        classic resolve and B3, and the next frame's vis-history."""
+        culling: the two-phase cull's visibility buffer (B1 in each
+        phase), the classic resolve and B3, and the next frame's
+        vis-history."""
         clip, wpos, wnrm, wtan = xf
         # Under TAA the resolve also carries each surface's last-frame
         # world position (B2's PLANE_PREV: last frame's node transforms,
@@ -904,20 +906,20 @@ class SceneViewerApplication:
         phase 2 rasterizes the other frustum-visible objects that pass
         the test against it (or reach behind the near plane); the phases
         merge on depth, and the next frame's visible set is tested
-        against the final depth.  Both phases run B1 (CULL_BACK, no
-        compaction: rasterMaxVisible is not read here, as in the
-        reference's classic route).  -> (setup, depth, tri, vis)."""
+        against the final depth.  Both phases run B1 through
+        rasterize_objects (CULL_BACK, no compaction: rasterMaxVisible is
+        not read here, as in the reference's classic route).
+        -> (setup, depth, tri, vis)."""
         p = ctx.params
         w, h = self._rw, self._rh
         prev_vis = ctx.history("vis-history")
         setup = R.setup_triangles(clip, self.packed.indices, w, h)
         rmin, rmax, maxz, behind = project_aabbs(
             p["obj_world_min"], p["obj_world_max"], p["view_proj"], w, h)
-        tri_object = self.packed.tri_object.long()
 
         def raster_with(mask, phase: int):
-            depth, tri, stats = rasterize_binned_checked(
-                setup._replace(valid=setup.valid & mask[tri_object]), w, h)
+            _setup, depth, tri, stats = rasterize_objects(
+                self.packed, setup, mask, w, h)
             self.raster_stats[f"occlusion-phase{phase}"] = stats
             return depth, tri
 
@@ -1236,22 +1238,12 @@ class SceneViewerApplication:
     def _bake_diffuse_volumes(self):
         """Bake the ambient-cube probe grid of every diffuse volume of the
         scene (VolumetricDiffuseLightManager::refresh, done once here
-        instead of incrementally over frame layers).  With none declared,
-        one is created over the scene bounds, as the reference viewer
-        does (scene_viewer_application.cpp:300-309), at
-        volumetricDiffuseResolution along its longest side.  Each probe
-        renders 6 faces (probe_face, then B4 with the sun and the sky)."""
+        instead of incrementally over frame layers); with none declared,
+        declare_diffuse_volume's.  Each probe renders 6 faces
+        (probe_face, then B4 with the sun and the sky)."""
         t0 = time.monotonic()
         scene = self.scene
-        if not scene.diffuse_volume_node:
-            mn = scene.r_world_min.min(axis=0)
-            mx = scene.r_world_max.max(axis=0)
-            ext = np.maximum(mx - mn, 1e-3) * 1.1
-            node = scene.create_node(translation=0.5 * (mn + mx), scale=ext)
-            rx = int(self.config.volumetric_diffuse_resolution)
-            res = tuple(max(int(round(rx * r)), 2) for r in ext / ext.max())
-            scene.create_volumetric_diffuse_light(res, node)
-            scene.update_transform_tree()
+        self.declare_diffuse_volume()
         bake = self.bake_inputs()
         fr = bake["face_res"]
 
@@ -1284,6 +1276,22 @@ class SceneViewerApplication:
              "%d^2, in %.2f s", len(volumes), scene.diffuse_volume_res, fr,
              self.bake_seconds)
 
+    def declare_diffuse_volume(self) -> None:
+        """With no diffuse volume declared, one over the scene bounds, as
+        the reference viewer does (scene_viewer_application.cpp:300-309),
+        at volumetricDiffuseResolution along its longest side."""
+        scene = self.scene
+        if scene.diffuse_volume_node:
+            return
+        mn = scene.r_world_min.min(axis=0)
+        mx = scene.r_world_max.max(axis=0)
+        ext = np.maximum(mx - mn, 1e-3) * 1.1
+        node = scene.create_node(translation=0.5 * (mn + mx), scale=ext)
+        rx = int(self.config.volumetric_diffuse_resolution)
+        res = tuple(max(int(round(rx * r)), 2) for r in ext / ext.max())
+        scene.create_volumetric_diffuse_light(res, node)
+        scene.update_transform_tree()
+
     def bake_inputs(self) -> dict:
         """What every face of the diffuse bake shares: the scene's world
         vertices (transformed once, in the current pose), the opaque
@@ -1307,6 +1315,14 @@ class SceneViewerApplication:
                         "sky_params": self.environment.sky_params,
                         "tiled": False}}
 
+    def probe_face_view(self, bake: dict, pos, face: int):
+        """Cube face `face` of a probe at `pos` -> (its view-projection,
+        the scene's clip-space vertices through it)."""
+        view = look_at_matrix(pos, pos + PROBE_FACE_DIRS[face],
+                              -PROBE_FACE_DV[face])
+        vp = (bake["proj"] @ view).astype(np.float32)
+        return vp, project(bake["verts"][0], self._t(vp))
+
     def probe_face(self, bake: dict, pos, face: int):
         """One cube face of a probe at `pos`: B1 over the opaque objects
         (in triangle chunks: a face is one tile, whose list could pass
@@ -1315,11 +1331,9 @@ class SceneViewerApplication:
         bake["stats"]."""
         wpos, wnrm, wtan = bake["verts"]
         fr = bake["face_res"]
-        view = look_at_matrix(pos, pos + PROBE_FACE_DIRS[face],
-                              -PROBE_FACE_DV[face])
-        vp = (bake["proj"] @ view).astype(np.float32)
+        vp, clip = self.probe_face_view(bake, pos, face)
         setup, _depth, tri, stats = rasterize_scene(
-            self.packed, project(wpos, self._t(vp)), bake["mask"], fr, fr)
+            self.packed, clip, bake["mask"], fr, fr)
         totals = bake["stats"]
         for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
             totals[k] = totals.get(k, 0) + stats[k]

@@ -43,28 +43,33 @@ def rasterize_binned_checked(setup, width: int, height: int):
     return depth, tri, stats
 
 
-def rasterize_binned_exact(setup, width: int, height: int,
-                           chunk: int = MAX_ENTRIES_PER_TILE):
-    """B1 over the valid triangles in consecutive chunks of at most
-    `chunk`, merged on depth (ties to the earlier chunk, so to the lower
-    triangle index) -> (depth, tri, raster stats summed over the chunks,
-    max_bin_entries their largest).  A chunk cannot put more than
-    MAX_ENTRIES_PER_TILE entries in a tile's list, so the walk drops
-    none: the reference's brute-force raster (which its diffuse bake
-    takes) drops none either, while a small view's single tile can
-    gather more than the clamp (an 8x8 cube face of the 258,774-triangle
-    bench scene).  Finding the valid triangles reads their count back to
-    the host."""
+def valid_chunks(setup, chunk: int = MAX_ENTRIES_PER_TILE):
+    """The valid triangles of setup in consecutive chunks of at most
+    `chunk` -> [(their indices, their setup)].  Finding them reads their
+    count back to the host."""
     ids = torch.nonzero(setup.valid)[:, 0]
     if ids.shape[0] == 0:
         # (the binner takes no empty setup: keep one invalid triangle)
         ids = torch.zeros(1, dtype=torch.long, device=ids.device)
+    return [(sel, TriangleSetup(*(f[sel] for f in setup)))
+            for sel in ids.split(chunk)]
+
+
+def rasterize_binned_exact(setup, width: int, height: int,
+                           chunk: int = MAX_ENTRIES_PER_TILE):
+    """B1 over the valid triangles in valid_chunks, merged on depth (ties
+    to the earlier chunk, so to the lower triangle index) -> (depth, tri,
+    raster stats summed over the chunks, max_bin_entries their largest).
+    A chunk cannot put more than MAX_ENTRIES_PER_TILE entries in a tile's
+    list, so the walk drops none: the reference's brute-force raster
+    drops none either, while a small view's single tile can gather more
+    than the clamp (an 8x8 cube face of the 258,774-triangle bench
+    scene).  Every camera view of the classic route (the diffuse bake's
+    faces, both occlusion-culling phases) rasterizes through here."""
     depth = tri = None
     stats: dict = {}
-    for c0 in range(0, ids.shape[0], chunk):
-        sel = ids[c0:c0 + chunk]
-        d, t, st = rasterize_binned_checked(
-            TriangleSetup(*(f[sel] for f in setup)), width, height)
+    for sel, sub in valid_chunks(setup, chunk):
+        d, t, st = rasterize_binned_checked(sub, width, height)
         t = torch.where(t >= 0, sel[t.clamp_min(0).long()].to(torch.int32),
                         t)
         for k, v in st.items():

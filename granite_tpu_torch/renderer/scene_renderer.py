@@ -538,12 +538,20 @@ def fused_raster_surface(scene: PackedScene, clip, object_mask,
 
 def rasterize_scene(scene: PackedScene, clip, object_mask, width: int,
                     height: int, cull_mode: int = R.CULL_BACK):
-    """Setup + per-object visibility + kernel B1 (its plain version on
-    CPU tensors) -> (setup, depth, tri, raster stats): the visibility
-    buffer of the classic route, with no triangle dropped (B1 over
-    triangle chunks, raster_dispatch.rasterize_binned_exact)."""
-    setup = R.setup_triangles(clip, scene.indices, width, height,
-                              cull_mode=cull_mode)
+    """Setup + rasterize_objects -> (setup, depth, tri, raster stats):
+    the visibility buffer of the classic route."""
+    return rasterize_objects(
+        scene, R.setup_triangles(clip, scene.indices, width, height,
+                                 cull_mode=cull_mode),
+        object_mask, width, height)
+
+
+def rasterize_objects(scene: PackedScene, setup, object_mask, width: int,
+                      height: int):
+    """Per-object visibility + kernel B1 (its plain version on CPU
+    tensors) over a view's triangle setup -> (setup masked to the
+    objects, depth, tri, raster stats), with no triangle dropped (B1
+    over triangle chunks, raster_dispatch.rasterize_binned_exact)."""
     setup = setup._replace(
         valid=setup.valid & object_mask[scene.tri_object.long()])
     return (setup, *rasterize_binned_exact(setup, width, height))

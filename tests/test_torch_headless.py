@@ -168,13 +168,15 @@ def test_runner_calls_match_jax(kw):
 
 
 def test_png_reference_writes_psnr_and_rejects_other_sizes(tmp_path):
+    # A fixed time step: under the wall clock the two runs render their
+    # frame at different elapsed times, and the frames then differ.
     out, stat = tmp_path / "out.png", tmp_path / "stat.json"
     assert run_headless(_app(), _args(
-        frames=1, width=32, height=18, warmup_frames=0,
+        frames=1, width=32, height=18, warmup_frames=0, time_step=0.02,
         png_path=str(out))) == 0
     assert run_headless(_app(), _args(
-        frames=1, width=32, height=18, warmup_frames=0, stat=str(stat),
-        png_reference_path=str(out))) == 0
+        frames=1, width=32, height=18, warmup_frames=0, time_step=0.02,
+        stat=str(stat), png_reference_path=str(out))) == 0
     counters = json.loads(stat.read_text())["performanceCounters"]
     assert {"psnrR", "psnrG", "psnrB", "psnrLuma", "rmsePercent"} \
         <= set(counters)
