@@ -111,6 +111,28 @@
                     scene bounds (set-up includes the bake), orbiting.
                     Frame 0 must differ from frame 0 without the volumes
                     in >= 0.1% of the pixels.
+     cascades:      the bench config with cascaded sun shadows (four
+                    2048^2 maps fitted around the camera, B1 on each
+                    every frame), PCFKernelWide, the clustered lights'
+                    VSM atlas and showUi, orbiting from the occlusion
+                    path's walk-through camera.  B1 exactly 4 times in
+                    every timed frame, every raster counter 0, B1 against
+                    its plain version on cascades 0 and 3 of the last
+                    timed frame (exact), >= 50% of its covered pixels
+                    inside a cascade; frame 0 must differ from frame 0
+                    with the single fitted sun map in >= 0.1% of the
+                    pixels (any change: both shadow the same casters,
+                    the cascades move penumbrae) and, inside the UI
+                    window's rectangle only, from frame 0 without the
+                    UI.  The host ms of the UI tree and of the overlay's
+                    upload are printed.
+     msaa:          the bench config with msaa 4 (B2, B3 and B4 at
+                    3840x2160, the tonemap's 2:1 box to 1920x1080) and
+                    renderTargetFp16, orbiting: B2, B3 and B4 in every
+                    timed frame, float16 HDR targets; then B2 (exact), B3
+                    (1e-6) and B4 (3e-4 relative) against their plain
+                    versions at 3840x2160, and B3 and B4 refusing float16
+                    inputs.
    deferred_post and fsr2 are TAA paths: their chained camera stands
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
@@ -124,10 +146,15 @@
    a `.scene` of the test scene, one character and the morph sheet
    through its camera 0, deferred_hdr with occlusionCulling and
    deferred_taa_fog with fog regions and volumetric diffuse (resolution
-   2, 8x8 faces), each with
+   2, 8x8 faces), forward_shadow with cascades and PCFKernelWide,
+   deferred_hdr with clusteredLightsShadowsVSM and with msaa 4 +
+   renderTargetFp16, deferred_taa_fog with showUi, each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
-   environment), and "true" sends the CPU down the same ones.
+   environment), and "true" sends the CPU down the same ones.  Then the
+   triangle demo (BASELINE config 1) through `python -m
+   granite_tpu_torch.app.triangle_demo`'s entry point at 1280x720, 4
+   frames: image gate, and its PNG against the same frame on the CPU.
 Each phase's wall seconds are printed when it ends.
 Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
@@ -180,6 +207,19 @@ OCCLUSION_EYE, OCCLUSION_TARGET = (12.0, 1.2, 12.0), (0.0, 0.5, 0.0)
 VOLUMES_OFF = {**BENCH_CONFIG, "volumetricFog": True}
 VOLUMES_CONFIG = {**VOLUMES_OFF, "volumetricFogRegions": True,
                   "volumetricDiffuse": True}
+# Cascaded sun shadows (4 maps fitted around the camera, B1 on each every
+# frame), the 6x6 windowed PCF, the clustered lights' VSM atlas and the UI
+# overlay, from the occlusion path's walk-through camera: the bench camera
+# sits above the scene, where the 8-64 m cascades cover little it sees.
+CASCADES_CONFIG = {**BENCH_CONFIG, "directionalLightShadowsCascaded": True,
+                   "PCFKernelWide": True, "clusteredLightsShadowsVSM": True,
+                   "showUi": True}
+CASCADE_COUNT = 4
+# At least this share of the covered pixels lies inside some cascade.
+MIN_CASCADE_COVERAGE = 0.5
+# msaa 4 (ordered-grid supersampling: B2, B3 and B4 at 3840x2160, the
+# tonemap's 2:1 box down to 1920x1080) with float16 HDR targets.
+MSAA_CONFIG = {**BENCH_CONFIG, "msaa": 4, "renderTargetFp16": True}
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -189,7 +229,9 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "decals_meshlet": (DECALS_CONFIG, ("B1", "B2", "B3", "B4")),
               "gltf_animated": (ANIM_CONFIG, ("B1", "B2", "B3", "B4")),
               "occlusion": (OCCLUSION_CONFIG, ("B1", "B3", "B4")),
-              "volumetric": (VOLUMES_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "volumetric": (VOLUMES_CONFIG, ("B1", "B2", "B3", "B4")),
+              "cascades": (CASCADES_CONFIG, ("B1", "B2", "B3", "B4")),
+              "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
 # decal node, on the animated `.scene`, knobs added, camera (eye, target)
 # or None).  Each runs with materialTileSampler "true", so both devices
@@ -211,6 +253,18 @@ CROSS_DEVICE["deferred_taa_fog fog regions + volumetric diffuse"] = (
     {"volumetricFogRegions": True, "volumetricDiffuse": True,
      "volumetricDiffuseResolution": 2, "volumetricDiffuseFaceResolution": 8},
     None)
+CROSS_DEVICE["forward_shadow cascades + PCFKernelWide"] = (
+    "forward_shadow", False, False,
+    {"directionalLightShadowsCascaded": True, "PCFKernelWide": True}, None)
+CROSS_DEVICE["deferred_hdr clusteredLightsShadowsVSM"] = (
+    "deferred_hdr", False, False, {"clusteredLightsShadowsVSM": True}, None)
+CROSS_DEVICE["deferred_hdr msaa 4 + renderTargetFp16"] = (
+    "deferred_hdr", False, False, {"msaa": 4, "renderTargetFp16": True},
+    None)
+CROSS_DEVICE["deferred_taa_fog showUi"] = (
+    "deferred_taa_fog", False, False, {"showUi": True}, None)
+# The triangle demo (BASELINE config 1) through its entry point.
+TRIANGLE_W, TRIANGLE_H, TRIANGLE_FRAMES = 1280, 720, 4
 # Decals of the decals_meshlet path: the viewer's table capacity, each
 # box scaled to this share of its distance from the camera.
 DECAL_COUNT, DECAL_SIZE = 16, 0.08
@@ -335,6 +389,14 @@ def device_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def add_case(results: dict, kid: str, case: dict) -> None:
+    """One more checked case of kernel kid (its max_abs_err joins the
+    kernel's)."""
+    results[kid]["cases"].append(case)
+    results[kid]["max_abs_err"] = max(results[kid]["max_abs_err"],
+                                      case["max_abs_err"])
 
 
 def bound(n_bytes: int, n_ops: int = 0) -> dict:
@@ -637,11 +699,11 @@ def b1_chunk_args(setup, width: int, height: int):
              span_w, span_h), int(setup.valid.sum()), len(chunks))
 
 
-def occlusion_app():
-    """The occlusion path's viewer: the bench scene, its config and the
-    walk-through camera."""
+def walkthrough_app(cfg: dict):
+    """A viewer on the bench scene with `cfg` and the occlusion path's
+    walk-through camera (occlusion and cascades)."""
     import numpy as np
-    app = make_app(OCCLUSION_CONFIG, True, "cuda")
+    app = make_app(cfg, True, "cuda")
     app.camera.look_at(np.asarray(OCCLUSION_EYE, np.float32),
                        np.asarray(OCCLUSION_TARGET, np.float32))
     return app
@@ -659,7 +721,7 @@ def slice_kernel_phases(results: dict) -> None:
     from granite_tpu_torch.renderer import scene_renderer as SR
     from granite_tpu_torch.renderer import volumetric_diffuse as VD
     results["B5"] = b5_cases()
-    app = occlusion_app()
+    app = walkthrough_app(OCCLUSION_CONFIG)
     app.swapchain_updated(WIDTH, HEIGHT)
     app.render_frames_chained(FRAME_TIME, 0.0, 1)
     vis = app._history["vis-history"]
@@ -701,9 +763,7 @@ def slice_kernel_phases(results: dict) -> None:
     check(not kkw["has_lights"] and kkw["has_env"], "B4 bake face flags")
     face = b4_compare(args, kkw, f"diffuse bake face {fr}x{fr}")
     for k, case in (("B1", main), ("B1", bake_face), ("B4", face)):
-        results[k]["cases"].append(case)
-        results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
-                                        case["max_abs_err"])
+        add_case(results, k, case)
     del app
     torch.cuda.empty_cache()
 
@@ -1014,10 +1074,10 @@ def device_busy_ms(app, frames: int) -> tuple[float, dict]:
     return busy, ranges
 
 
-def backbuffer_diff(a, b) -> int:
-    """Pixels whose rgb differ by more than 8 levels in some channel."""
+def backbuffer_diff(a, b, levels: int = 8) -> int:
+    """Pixels whose rgb differ by more than `levels` in some channel."""
     d = (a[..., :3].int() - b[..., :3].int()).abs().amax(-1)
-    return int((d > 8).sum())
+    return int((d > levels).sum())
 
 
 def place_decals(app) -> int:
@@ -1210,6 +1270,212 @@ def volumes_check(app) -> dict:
     return dict(bake_s=app.bake_seconds, volume_pixels=changed)
 
 
+def b1_cascade_case(app, params, c: int) -> dict:
+    """B1 on cascade c of a frame of the cascades path, as its shadow
+    pass runs it: every caster in the sun's frustum (the shadow mask),
+    set up through the cascade's view-proj and binned into its 2048^2
+    map."""
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    size = int(app.config.shadow_map_resolution)
+    setup = SR.shadow_setup(app.packed, params["external"]["world"],
+                            params["cascade_vps"][c], size,
+                            params["shadow_mask"], params["skin_palette"],
+                            params["morph_weights"])
+    pk, st, hr, hs = RB.bin_triangles(setup, size, size, span_w=2,
+                                      span_h=8)[:4]
+    return b1_case((st, hs, pk, hr, size // RB.TILE_W, size // RB.TILE_H,
+                    2, 8), f"cascade {c} {size}^2")
+
+
+def cascade_coverage(app, params) -> tuple[float, list]:
+    """The share of a frame's covered pixels (B2 + B3 at the display
+    size) inside the UV footprint of at least one cascade (the blend's
+    weight above 0), and the share each cascade is the first to hold."""
+    import torch
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    ext = params["external"]
+    clip, wpos, wnrm, wtan = SR.transform_vertices(
+        app.packed, ext["world"], ext["normal_mats"], params["view_proj"])
+    surf, _depth, _stats = SR.fused_raster_surface(
+        app.packed, clip, params["object_mask"], wpos, wnrm, wtan, WIDTH,
+        HEIGHT, max_visible=app._resolved_max_visible())
+    pos = surf["pos"][surf["covered"]]
+    m = params["shadow_uv_mat"]
+    uvw = torch.einsum("pk,cjk->cpj", pos, m[:, :3, :3]) + m[:, None, :3, 3]
+    margin = torch.maximum((uvw[..., 0] - 0.5).abs(),
+                           (uvw[..., 1] - 0.5).abs()) * 2.0
+    inside = margin < 1.0
+    first = torch.where(inside.any(0), inside.int().argmax(0), -1)
+    n = max(int(pos.shape[0]), 1)
+    return (float(inside.any(0).sum()) / n,
+            [float((first == c).sum()) / n for c in range(m.shape[0])])
+
+
+def cascades_check(app, stats: dict, frames: list, params,
+                   results: dict) -> dict:
+    """The cascades path's gates: B1 exactly CASCADE_COUNT times in every
+    timed frame; every raster counter 0 (the four cascade maps and the
+    G-buffer); B1 against its plain version on cascades 0 and 3 of the
+    last timed frame; >= MIN_CASCADE_COVERAGE of that frame's covered
+    pixels inside a cascade; frame 0 with the UI against frame 0 without
+    it in the window's rectangle; frame 0 with the cascades against frame
+    0 with the single fitted sun map in >= MIN_CHANGED_SHARE of the
+    pixels.  Also the host ms of the UI tree and of the overlay's upload
+    a frame."""
+    import torch
+    b1 = [f["B1"] for f in frames]
+    check(len(b1) == FRAMES and all(n == CASCADE_COUNT for n in b1),
+          f"B1 launches in the {FRAMES} timed frames: {b1}")
+    for pass_name, st in stats.items():
+        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
+            check(st.get(k, 0) == 0, f"cascades {pass_name} {k} = "
+                  f"{st.get(k)}")
+    for c in (0, CASCADE_COUNT - 1):
+        add_case(results, "B1", b1_cascade_case(app, params, c))
+    share, firsts = cascade_coverage(app, params)
+    log(f"cascades: {share:.4f} of the last timed frame's covered pixels "
+        f"inside a cascade (first held by cascade 0-3: "
+        f"{[round(f, 4) for f in firsts]}), gate {MIN_CASCADE_COVERAGE}")
+    check(share >= MIN_CASCADE_COVERAGE,
+          f"cascade coverage {share:.4f} < {MIN_CASCADE_COVERAGE}")
+    reps = 8
+    t = time.monotonic()
+    for _ in range(reps):
+        canvas = app.ui_overlay(FRAME_TIME)
+    ui_ms = (time.monotonic() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(reps):
+        app._t(canvas)
+    torch.cuda.synchronize()
+    upload_ms = (time.monotonic() - t) * 1e3 / reps
+
+    def frame0():
+        app._history = app.graph.initial_history(app.device)
+        return app.render_frames_chained(FRAME_TIME, 0.0, 1)
+
+    with_all = frame0()
+    app.config.show_ui = False
+    no_ui = frame0()
+    app.config.show_ui = True
+    app.config.directional_light_cascaded_shadows = False
+    app.swapchain_updated(WIDTH, HEIGHT)
+    no_cascades = frame0()
+    torch.cuda.synchronize()
+    win = app.ui_manager.widgets[0]
+    x0, y0 = int(win.x), int(win.y)
+    x1, y1 = x0 + int(win.w), y0 + int(win.h)
+    ui_pixels = backbuffer_diff(with_all[y0:y1, x0:x1], no_ui[y0:y1, x0:x1])
+    outside = backbuffer_diff(with_all, no_ui) - ui_pixels
+    # The two maps shadow the same casters: the cascades move penumbrae
+    # (cascade 0's texels are ~1/4 of the fitted map's), so the gate
+    # counts every pixel that changes, and the > 8 levels count is printed
+    changed = backbuffer_diff(with_all, no_cascades, 0)
+    strong = backbuffer_diff(with_all, no_cascades)
+    need = int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
+    log(f"showUi: window {x1 - x0}x{y1 - y0} at ({x0}, {y0}), label "
+        f"'{app._ui_stats_label.text}'; {ui_pixels} of its pixels change "
+        f"(> 8 levels), {outside} outside it; host UI tree {ui_ms:.3f} "
+        f"ms/frame, overlay upload ({tuple(canvas.shape)} f32, "
+        f"{canvas.nbytes} B) {upload_ms:.3f} ms/frame")
+    log(f"cascades: frame 0 changes in {changed} pixels ({strong} by > 8 "
+        f"levels) of {WIDTH * HEIGHT} against the single fitted sun map, "
+        f"gate {need}")
+    check(2 * ui_pixels >= (x1 - x0) * (y1 - y0) and outside == 0,
+          f"the UI window changed {ui_pixels} pixels, {outside} outside")
+    check(changed >= need, f"the cascades changed {changed} < {need} pixels")
+    return dict(coverage=share, ui_ms=ui_ms, upload_ms=upload_ms,
+                cascade_pixels=changed)
+
+
+def msaa_check(app, frames: list, results: dict) -> dict:
+    """The msaa path's gates: it renders at 2x the display size, B2, B3
+    and B4 launch in every timed frame, and its HDR targets are float16
+    (the bloom chain's history holds one from the pool); then B2, B3 and
+    B4 against their plain versions on a frame at 3840x2160, and B3 and
+    B4 refusing float16 inputs (the callers convert)."""
+    import torch
+    from granite_tpu_torch.ops.shade_fused import shade_planes_fused
+    from granite_tpu_torch.ops.tile_sampler import sample_lod
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    rw, rh = app._rw, app._rh
+    check((rw, rh) == (2 * WIDTH, 2 * HEIGHT), f"msaa 4 renders {rw}x{rh}")
+    for k in ("B2", "B3", "B4"):
+        per = [f[k] for f in frames]
+        check(len(per) == FRAMES and min(per) >= 1,
+              f"{k} launches in the {FRAMES} timed frames: {per}")
+    res = app.graph._resources
+    check(res["hdr"].info.dtype == torch.float16, "hdr is not float16")
+    check(app._history["bloom-d0"].dtype == torch.float16,
+          f"bloom history {app._history['bloom-d0'].dtype}")
+    params = app.build_frame_params(FRAME_TIME)
+    planes, cov, b2 = b2_case(app, params, rw, rh)
+    surf = surface(app, planes, cov)
+    b3 = b3_main_cases(app, params, planes, cov, surf, f"{rw}x{rh}")
+    b4 = b4_case(app, params, surf, "msaa 4 render size")
+    args, kkw = SR.shade_inputs(surf, params, **app.light_kwargs(
+        params, params["static_shadow_depth"]))
+    refused = []
+    for what, fn in (
+            ("B4 float16 planes",
+             lambda: shade_planes_fused(args[0].half(), *args[1:], **kkw)),
+            ("B3 float16 u", lambda: sample_lod(
+                app.packed.bundles, torch.zeros_like(cov, dtype=torch.int32),
+                surf["pos"][..., 0].contiguous().half(),
+                surf["pos"][..., 1].contiguous(),
+                surf["pos"][..., 2].contiguous(), SR.MATERIAL_CHANNELS))):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+    log(f"msaa: float16 inputs refused: {refused}")
+    check(len(refused) == 2, "a kernel took float16 inputs")
+    add_case(results, "B2", b2)
+    for c in b3:
+        add_case(results, "B3", c)
+    add_case(results, "B4", b4)
+    return dict(render=f"{rw}x{rh}")
+
+
+def triangle_demo() -> dict:
+    """BASELINE config 1 through `python -m granite_tpu_torch.app.
+    triangle_demo`'s entry point on the card (TRIANGLE_FRAMES timed
+    frames at TRIANGLE_W x TRIANGLE_H), its PNG behind the image gate and
+    held against the same frame on the CPU."""
+    import numpy as np
+    from golden_utils import psnr
+    from granite_tpu_torch.app import triangle_demo as TD
+    from granite_tpu_torch.utils.image_io import load_image
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "triangle.png")
+        t = time.monotonic()
+        rc = TD.main(["--width", str(TRIANGLE_W), "--height", str(TRIANGLE_H),
+                      "--frames", str(TRIANGLE_FRAMES), "--time-step",
+                      str(FRAME_TIME), "--device", "cuda", "--png-path",
+                      path])
+        wall = time.monotonic() - t
+        img = load_image(path)
+    check(rc == 0, f"the triangle demo exited {rc}")
+    ok, means = image_gate(img)
+    cpu = TD.TriangleApplication(device="cpu")
+    cpu.swapchain_updated(TRIANGLE_W, TRIANGLE_H)
+    # the runner's last timed frame: elapsed TRIANGLE_FRAMES fixed steps
+    ref = cpu.render_frame(FRAME_TIME, TRIANGLE_FRAMES
+                           * int(FRAME_TIME * 1e9) * 1e-9).numpy()
+    p = psnr(img, ref)
+    covered = int((np.abs(img[..., :3].astype(int)
+                          - img[0, 0, :3].astype(int)).max(-1) > 8).sum())
+    log(f"triangle demo {TRIANGLE_W}x{TRIANGLE_H}, {TRIANGLE_FRAMES} frames:"
+        f" exit {rc}, {wall:.2f} s wall, image gate ok={ok} rgb means "
+        f"{means}, {covered} triangle pixels; cuda vs cpu luma PSNR {p:.2f}"
+        " dB")
+    check(ok, f"triangle demo image gate failed: means {means}")
+    check(covered > 0.05 * TRIANGLE_W * TRIANGLE_H, "no triangle drawn")
+    check(p >= PSNR_GATE_DB, f"triangle demo cuda vs cpu PSNR {p:.2f}")
+    return dict(psnr=p, wall_s=wall)
+
+
 def main_path(name: str, results: dict) -> dict:
     """One bench frame path through the kernels; returns its launches
     (gltf_animated adds its B1 case to results)."""
@@ -1228,8 +1494,8 @@ def main_path(name: str, results: dict) -> dict:
                                      ANIM_TARGET)
         app = make_app(cfg, False, "cuda", scene=scene, camera_index=0)
         files.cleanup()
-    elif name == "occlusion":
-        app = occlusion_app()
+    elif name in ("occlusion", "cascades"):
+        app = walkthrough_app(cfg)
     else:
         app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
@@ -1244,17 +1510,18 @@ def main_path(name: str, results: dict) -> dict:
     setup_s = time.monotonic() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # B1's launches in each timed frame: the render graph runs once a
-    # frame, and a wrapper counts its launch on the host as it enqueues;
-    # under occlusion culling it also keeps each frame's cull counts (on
-    # the device) and its params, history and backbuffer
-    b1_frames, culls, kept = [], [], []
+    # Each kernel's launches in each timed frame: the render graph runs
+    # once a frame, and a wrapper counts its launch on the host as it
+    # enqueues; under occlusion culling it also keeps each frame's cull
+    # counts (on the device) and its params, history and backbuffer
+    frames, culls, kept, last = [], [], [], {}
     execute = app.graph.execute
 
     def counted(params, history):
-        n = K.LAUNCHES["B1"]
+        before = dict(K.LAUNCHES)
         result = execute(params, history)
-        b1_frames.append(K.LAUNCHES["B1"] - n)
+        frames.append({k: K.LAUNCHES[k] - before[k] for k in before})
+        last["params"] = params
         if app.config.occlusion_culling:
             culls.append(dict(app.cull_counts))
             kept.append((params, history, result[0]))
@@ -1271,6 +1538,7 @@ def main_path(name: str, results: dict) -> dict:
     ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
     del app.graph.execute
+    b1_frames = [f["B1"] for f in frames]
     busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
@@ -1289,7 +1557,10 @@ def main_path(name: str, results: dict) -> dict:
     log(f"device ms a frame by range {name} "
         f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
     log(f"launches {name} {launches}; B1 in each of the {FRAMES} timed "
-        f"frames {b1_frames}")
+        f"frames {b1_frames}" + (
+            "; B2/B3/B4 in each "
+            f"{[(f['B2'], f['B3'], f['B4']) for f in frames]}"
+            if name == "msaa" else ""))
     # max_bin_entries and the overflow/clamp counters: printed, gated only
     # on the time-varying paths (the reference clamps and drops the same
     # way; the port counts)
@@ -1301,6 +1572,10 @@ def main_path(name: str, results: dict) -> dict:
         del culls, kept
     if name == "volumetric":
         volumes_check(app)
+    if name == "cascades":
+        cascades_check(app, stats, frames, last["params"], results)
+    if name == "msaa":
+        msaa_check(app, frames, results)
     if name == "gltf_animated":
         check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
               f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
@@ -1314,10 +1589,7 @@ def main_path(name: str, results: dict) -> dict:
             f"{len(app.info.skins)} skins, {app.packed.num_objects} objects,"
             f" {int(app.packed.indices.shape[0])} triangles; host pose + "
             f"params {(time.monotonic() - t) * 1e3 / 4:.3f} ms/frame")
-        dyn = b1_dynamic_case(app)
-        results["B1"]["cases"].append(dyn)
-        results["B1"]["max_abs_err"] = max(results["B1"]["max_abs_err"],
-                                           dyn["max_abs_err"])
+        add_case(results, "B1", b1_dynamic_case(app))
     check(img.shape == (HEIGHT, WIDTH, 4), f"backbuffer shape {img.shape}")
     check(ok, f"image gate failed: means {means}")
     for k in required:
@@ -1388,6 +1660,7 @@ def main() -> int:
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     cross_device()
+    triangle = triangle_demo()
     log(f"phase 4 took {time.monotonic() - t:.1f} s; the run "
         f"{time.monotonic() - t_start:.1f} s")
     kernels = []
@@ -1407,7 +1680,7 @@ def main() -> int:
         "timing": "ms: device time, CUDA graph of N wrapper calls replayed "
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
-        "compile_probe": probe_result,
+        "compile_probe": probe_result, "triangle_demo": triangle,
         "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,10 +27,16 @@ visibility set carried as vis-history; volumetricFogRegions bounds the
 froxel fog to unit-box regions (a default one at scale 40);
 volumetricDiffuse bakes ambient-cube probe
 volumes at set-up (B1, the classic resolve, B3, B4 on small cube faces)
-whose irradiance replaces the SH sky's.  Kernels: B1 for the sun shadow
-map, the clustered light shadow atlas and the culled main view, B2 + B3
-for the surface, B3 + B4 for lighting (B4 takes the SSAO plane), B3T
-for the VSM sun term.  Config
+whose irradiance replaces the SH sky's.  directionalLightShadowsCascaded
+renders four camera-fitted sun maps through B1 every frame;
+PCFKernelWide takes the 6x6 windowed PCF; clusteredLightsShadowsVSM packs
+the light atlas as blurred moments; msaa N supersamples at sqrt(N) x the
+render scale, which the tonemap's resize reduces; renderTargetFp16 makes
+the HDR colour targets float16; showUi composites the host-rendered stats
+window after the tonemap.  Kernels: B1 for the sun shadow map (or the
+cascades), the clustered light shadow atlas and the culled main view,
+B2 + B3 for the surface, B3 + B4 for lighting (B4 takes the SSAO plane),
+B3T for the VSM sun term.  Config
 knobs keep the reference's config.json names; a knob value the port does
 not implement raises NotImplementedError.
 
@@ -72,9 +78,10 @@ from ..ops.fsr2 import fsr2_jitter_phases, fsr2_upscale
 from ..ops.fxaa import fxaa
 from ..ops.hiz import build_hiz, occlusion_test, project_aabbs
 from ..ops.light_shadows import FACE_DIRS, FACE_UPS, assign_slices, \
-    pack_atlas
+    pack_atlas, pack_atlas_vsm
 from ..ops.shadow import (
-    directional_shadow_matrix, shadow_uv_transform, vsm_moments,
+    cascade_matrices, directional_shadow_matrix, shadow_uv_transform,
+    vsm_moments,
 )
 from ..ops.smaa import smaa
 from ..ops.srgb import encode_rgba8
@@ -114,6 +121,8 @@ from ..scene.scene_formats import (
     MaterialData, NodeData, SceneInfo,
 )
 from ..scene.scene_loader import SceneLoader
+from ..ui.flat_renderer import composite_overlay
+from ..ui.widgets import Label, UIManager, Window
 from ..utils.image_io import save_png
 from ..utils.logging import LOGI, LOGW
 from .headless import headless_main
@@ -243,19 +252,15 @@ class ViewerConfig:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
-        far (deferred/forward, HDR, every postAA, fog with its regions,
-        SSAO/SSR, render scale, ocean, terrain, volumetric decals,
-        volumetric diffuse, occlusion culling, meshlet encoding,
-        rescaleScene, the kernel route)."""
+        far (texture streaming, the untiled environment, the half-res
+        specular environment, the bin-plan cache and the non-kernel
+        routes); every other knob of the JAX viewer renders."""
         need = {
-            "renderer": ("deferred", "forward"), "msaa": (1,),
-            "directional_light_cascaded_shadows": (False,),
-            "clustered_lights_shadows_vsm": (False,),
+            "renderer": ("deferred", "forward"), "msaa": (1, 2, 4, 8),
             "texture_streaming": (False,), "env_tile_sampler": (True,),
             "env_specular_half_res": (False,),
             "mesh_encoding": ("classic", "meshlet"),
-            "render_target_fp16": (False,), "pcf_kernel_wide": (False,),
-            "post_aa": _POST_AA, "show_ui": (False,),
+            "post_aa": _POST_AA,
         }
         for name, allowed in need.items():
             if getattr(self, name) not in allowed:
@@ -431,6 +436,9 @@ class SceneViewerApplication:
         self._vol_diffuse = None
         self.bake_seconds = 0.0
         self.bake_stats: dict = {}
+        # showUi: the stats window, built at the first frame
+        self.ui_manager = None
+        self._ui_stats_label = None
 
     # -- scene ----------------------------------------------------------------
     def _add_ocean(self, info: SceneInfo) -> None:
@@ -588,20 +596,44 @@ class SceneViewerApplication:
             self.scene.create_volumetric_fog_region(node)
             self.scene.update_transform_tree()
         self._build_light_shadow_atlas()
-        # The frame renders at resolutionScale x the display size.
+        # The frame renders at resolutionScale x the display size; msaa
+        # N > 1 is ordered-grid supersampling on top of it, as in the JAX
+        # viewer: sqrt(N) x the scale, reduced by the tonemap's resize.
         rs = float(self.config.resolution_scale)
+        if self.config.msaa > 1:
+            rs = rs * float(np.sqrt(self.config.msaa))
         self._rw = max(int(width * rs), 1)
         self._rh = max(int(height * rs), 1)
+        if self.config.renderer == "deferred" and self.config.ssr and (
+                self._rw % 2 or self._rh % 2):
+            # The JAX viewer's SSR stacks its half-res march grid with the
+            # full-res depth and fails on an odd render size
+            # (granite_tpu/ops/ssr.py:30, "All input arrays must have the
+            # same shape").
+            raise NotImplementedError(
+                f"ssr at an odd render size {self._rw}x{self._rh} "
+                "(resolutionScale, msaa): the JAX viewer fails there too")
         g = self.graph
         g.reset()
         g.set_backbuffer_dimensions(width, height)
+        # renderTargetFp16: the HDR colour targets (lit frame, SSR, TAA /
+        # FSR2 resolve and history, the bloom chain) are float16; the
+        # graph casts each pass's output to its target's type.
+        rt_dtype = torch.float16 if self.config.render_target_fp16 \
+            else torch.float32
 
         def display(scale, channels, dtype=torch.float32):
             return AttachmentInfo(SizeClass.SWAPCHAIN_RELATIVE, scale, scale,
                                   channels=channels, dtype=dtype)
 
+        def display_rt(scale, channels):
+            return display(scale, channels, rt_dtype)
+
         def rel(scale, channels, dtype=torch.float32):
             return display(rs * scale, channels, dtype)
+
+        def rel_rt(scale, channels):
+            return rel(scale, channels, rt_dtype)
 
         # Temporal jitter for the TAA family (post/temporal.cpp); taaFSR2
         # upscales, smaaT2X and fxaa2phase add their LDR pass after TAA.
@@ -617,14 +649,18 @@ class SceneViewerApplication:
             self._jitter = TAA.TemporalJitter(phases, self._rw, self._rh)
 
         use_shadow = self.config.directional_light_shadows
+        cascaded = self.config.directional_light_cascaded_shadows
         if use_shadow:
+            # Cascades render 4 depth maps (the sun term is cascaded PCF,
+            # VSM or not); otherwise one depth map, or its VSM moments.
             s = int(self.config.shadow_map_resolution)
-            channels = 2 if self.config.directional_light_shadows_vsm else 1
+            vsm = self.config.directional_light_shadows_vsm and not cascaded
             g.add_pass("shadow-main", Queue.GRAPHICS) \
                 .add_external_input("world") \
                 .add_depth_stencil_output(
-                    "shadow-depth", AttachmentInfo(SizeClass.ABSOLUTE, s, s,
-                                                   channels=channels)) \
+                    "shadow-depth", AttachmentInfo(
+                        SizeClass.ABSOLUTE, s, s, channels=2 if vsm else 1,
+                        layers=4 if cascaded else 1)) \
                 .set_execute(self._shadow_pass)
         if self.ocean is not None:
             n = self.ocean.config.fft_resolution
@@ -635,20 +671,21 @@ class SceneViewerApplication:
         if self.config.volumetric_fog:
             # Froxel fog volume: light density + accumulation in one pass;
             # the lit frame composites it.  The sun term is shadowed only
-            # by a plain (non-VSM) depth map, as in the reference.
+            # by a single plain depth map (not VSM, not cascades), as in
+            # the reference.
             fog = g.add_pass("fog-volume", Queue.ASYNC_COMPUTE) \
                 .add_storage_output("fog-volume", BufferInfo(
                     (DEFAULT_D, DEFAULT_H, DEFAULT_W, 4), torch.float32))
-            if use_shadow and not self.config.directional_light_shadows_vsm:
+            if self._fog_reads_shadow():
                 fog.add_texture_input("shadow-depth")
             fog.set_execute(self._fog_volume_pass)
         if self.config.renderer == "deferred":
-            self._add_deferred_passes(g, rel, use_shadow)
+            self._add_deferred_passes(g, rel, rel_rt, use_shadow)
         else:
             fwd = g.add_pass("forward", Queue.GRAPHICS) \
                 .add_external_input("world") \
                 .add_external_input("normal_mats") \
-                .add_color_output("hdr", rel(1, 3)) \
+                .add_color_output("hdr", rel_rt(1, 3)) \
                 .add_depth_stencil_output("depth-main", rel(1, 1))
             self._add_surface_outputs(fwd, rel)
             if self.config.volumetric_fog:
@@ -662,18 +699,18 @@ class SceneViewerApplication:
         hdr_name = "hdr-ssr" if self.config.renderer == "deferred" \
             and self.config.ssr else "hdr"
         self._lit_name = hdr_name
-        post_rel = rel
+        post_rel_rt = rel_rt
         if self._use_fsr2:
             # Temporal upscale to display size; the HDR chain and the
             # tonemap then run at display size.
-            post_rel = display
+            post_rel_rt = display_rt
             g.add_pass("fsr2-upscale", Queue.GRAPHICS) \
                 .add_texture_input(hdr_name) \
                 .add_texture_input("depth-main") \
                 .add_texture_input("mv") \
                 .add_history_input("fsr2-history") \
-                .add_color_output("hdr-resolved", display(1, 3)) \
-                .add_color_output("fsr2-history", display(1, 4)) \
+                .add_color_output("hdr-resolved", display_rt(1, 3)) \
+                .add_color_output("fsr2-history", display_rt(1, 4)) \
                 .set_execute(self._fsr2_pass)
             hdr_name = "hdr-resolved"
         elif self._use_taa:
@@ -683,14 +720,14 @@ class SceneViewerApplication:
                 .add_texture_input("depth-main") \
                 .add_texture_input("mv") \
                 .add_history_input("taa-history") \
-                .add_color_output("hdr-resolved", rel(1, 3)) \
-                .add_color_output("taa-history", rel(1, 3)) \
+                .add_color_output("hdr-resolved", rel_rt(1, 3)) \
+                .add_color_output("taa-history", rel_rt(1, 3)) \
                 .set_execute(self._taa_pass)
             hdr_name = "hdr-resolved"
         self._hdr_name = hdr_name
 
         if self.config.hdr_bloom:
-            self._add_hdr_chain(g, post_rel)
+            self._add_hdr_chain(g, post_rel_rt)
         self._ldr_aa = self._use_fxaa or self._use_smaa
         tm = g.add_pass("tonemap", Queue.GRAPHICS) \
             .add_texture_input(hdr_name)
@@ -733,7 +770,15 @@ class SceneViewerApplication:
             p.add_storage_output("vis-history", BufferInfo(
                 (self.packed.num_objects,), torch.bool))
 
-    def _add_deferred_passes(self, g, rel, use_shadow: bool) -> None:
+    def _fog_reads_shadow(self) -> bool:
+        """The fog volume's sun term reads the shadow map only when it is
+        a single plain depth map."""
+        c = self.config
+        return c.directional_light_shadows and not (
+            c.directional_light_cascaded_shadows
+            or c.directional_light_shadows_vsm)
+
+    def _add_deferred_passes(self, g, rel, rel_rt, use_shadow: bool) -> None:
         """G-buffer pass, [SSAO at half res,] the lighting resolve, [SSR]."""
         gb = g.add_pass("gbuffer", Queue.GRAPHICS) \
             .add_external_input("world") \
@@ -759,7 +804,7 @@ class SceneViewerApplication:
                      "g-covered", "depth-main"):
             light.add_attachment_input(name)
         light.add_external_input("world").add_external_input("normal_mats") \
-            .add_color_output("hdr", rel(1, 3))
+            .add_color_output("hdr", rel_rt(1, 3))
         if self.config.ssao:
             light.add_texture_input("ssao-output")
         if self.config.volumetric_fog:
@@ -778,7 +823,7 @@ class SceneViewerApplication:
                 .add_texture_input("g-normal") \
                 .add_texture_input("g-base") \
                 .add_texture_input("g-pbr") \
-                .add_color_output("hdr-ssr", rel(1, 3)) \
+                .add_color_output("hdr-ssr", rel_rt(1, 3)) \
                 .set_execute(self._ssr_pass)
 
     def _add_hdr_chain(self, g, rel) -> None:
@@ -817,13 +862,27 @@ class SceneViewerApplication:
 
     # -- passes -----------------------------------------------------------------
     def _shadow_pass(self, ctx):
-        """The cached static sun map, or under VSM its baked moments.
-        With dynamic casters, B1 rasterizes the visible ones (posed by
-        this frame's skin palette and morph weights) into a map of their
-        own each frame, composited onto the static map with max (reverse
-        Z: the greater depth is the closer); VSM then blurs the moments
-        of the composite each frame."""
+        """Under cascades, B1 rasterizes the four camera-fitted maps every
+        frame over the static and dynamic casters together (posed by the
+        skin palette and morph weights; no static cache).  Otherwise the
+        cached static sun map, or under VSM its baked moments.  With
+        dynamic casters, B1 rasterizes the visible ones (posed by this
+        frame's skin palette and morph weights) into a map of their own
+        each frame, composited onto the static map with max (reverse Z:
+        the greater depth is the closer); VSM then blurs the moments of
+        the composite each frame."""
         p = ctx.params
+        if self.config.directional_light_cascaded_shadows:
+            maps = []
+            for c in range(p["cascade_vps"].shape[0]):
+                depth, stats = render_shadow_map(
+                    self.packed, ctx.input("world"), p["cascade_vps"][c],
+                    int(self.config.shadow_map_resolution),
+                    p["shadow_mask"], skin_palette=p.get("skin_palette"),
+                    morph_weights=p.get("morph_weights"), with_stats=True)
+                self.raster_stats[f"shadow-cascade{c}"] = stats
+                maps.append(depth)
+            return {"shadow-depth": torch.stack(maps)}
         vsm = self.config.directional_light_shadows_vsm
         if not self._has_dynamic_casters:
             return {"shadow-depth": p["static_vsm_moments"] if vsm
@@ -1036,6 +1095,7 @@ class SceneViewerApplication:
         kw = dict(shadow_map=shadow_map,
                   shadow_uv_mat=p["shadow_uv_mat"],
                   width=self._rw, height=self._rh, background=None,
+                  pcf_wide=self.config.pcf_kernel_wide,
                   shadow_tiled=(
                       self.config.directional_light_shadows_vsm and tiled),
                   shadow_half_res=self._on_here(
@@ -1068,9 +1128,8 @@ class SceneViewerApplication:
 
     def _fog_volume_pass(self, ctx):
         p = ctx.params
-        shadow = ctx.input("shadow-depth") \
-            if self.config.directional_light_shadows \
-            and not self.config.directional_light_shadows_vsm else None
+        shadow = ctx.input("shadow-depth") if self._fog_reads_shadow() \
+            else None
         regions = None
         if self.config.volumetric_fog_regions and \
                 self.scene.fog_region_node:
@@ -1153,10 +1212,15 @@ class SceneViewerApplication:
                 avg_log = ctx.input("luminance")
         ldr = HDR.tonemap(ctx.input(self._hdr_name), bloom, avg_log)
         if ldr.shape[:2] != (self.height, self.width):
-            # Render size to display size, then the post-upscale sharpen.
+            # Render size to display size (msaa's reduction too), then the
+            # post-upscale sharpen.
             ldr = HDR.resize_bilinear(ldr, self.height, self.width)
             if self.config.resolution_scale_sharpen:
                 ldr = HDR.sharpen(ldr)
+        if self.config.show_ui:
+            # The UI overlay (the host-rendered widget tree), blended on
+            # the display-size frame before the LDR AA or the encode.
+            ldr = composite_overlay(ldr, ctx.params["ui_overlay"])
         if self._ldr_aa:
             return {"ldr": ldr.clamp(0.0, 1.0)}
         return {"backbuffer": encode_rgba8(ldr)}
@@ -1225,8 +1289,10 @@ class SceneViewerApplication:
         slices = [render_shadow_map(self.packed, world, vp, size, mask,
                                     skin_palette=palette)
                   for vp, mask in views]
+        pack = pack_atlas_vsm if self.config.clustered_lights_shadows_vsm \
+            else pack_atlas
         self._cluster_shadow = {
-            "atlas_flat": pack_atlas(torch.stack(slices)),
+            "atlas_flat": pack(torch.stack(slices)),
             "vps_np": vps, "size": size,
             "light_slice_np": slice_np, "light_kind_np": kind_np,
             "light_pos_np": np.stack([li["pos"] for li in infos]),
@@ -1438,15 +1504,30 @@ class SceneViewerApplication:
         period = self.ocean.config.animation_period
         return self._t(np.float32(elapsed_time % (period * 2)))
 
+    def ui_overlay(self, frame_time: float) -> np.ndarray:
+        """showUi: the stats window's widget tree (ui/widgets.py;
+        ui_manager.hpp:44), its label the frame time and the triangle
+        count, rendered on the host into the display-size (H, W, 4) RGBA
+        overlay."""
+        if self.ui_manager is None or self.ui_manager.width != self.width:
+            self.ui_manager = UIManager(self.width, self.height)
+            win = self.ui_manager.add_child(Window("granite tpu"))
+            self._ui_stats_label = win.add_child(Label(""))
+        self._ui_stats_label.set_text(
+            f"{frame_time * 1000:5.1f} ms "
+            f"{int(self.packed.indices.shape[0])} tris")
+        return self.ui_manager.render()
+
     def build_frame_params(self, frame_time: float,
                            elapsed_time: float = 0.0) -> dict:
-        """Host-side frame prep: culling, shadow matrices, the cached
-        static sun shadow map (kernel B1), the skin palette and morph
-        weights of the current pose, light binning, the visible decals,
-        uploads.  Under TAA it steps the jitter first: the frame renders
-        with the jittered view-proj (culling keeps the un-jittered
-        frustum).  elapsed_time drives the ocean (the animation system
-        poses the scene before this is called)."""
+        """Host-side frame prep: culling, shadow matrices (the cascades'
+        from the camera), the cached static sun shadow map (kernel B1),
+        the skin palette and morph weights of the current pose, light
+        binning, the visible decals, the UI overlay, uploads.  Under TAA
+        it steps the jitter first: the frame renders with the jittered
+        view-proj (culling keeps the un-jittered frustum).  elapsed_time
+        drives the ocean (the animation system poses the scene before this
+        is called)."""
         scene = self.scene
         scene.update_transform_tree()
         self.context.set_camera(self.camera)
@@ -1482,7 +1563,20 @@ class SceneViewerApplication:
             "shadow_uv_mat": self._t(shadow_uv_transform(light_vp)),
             "frame_time": float(frame_time),
         }
-        if self.config.directional_light_shadows:
+        if self.config.directional_light_shadows and \
+                self.config.directional_light_cascaded_shadows:
+            # Four maps fitted around the camera, every caster in the sun's
+            # frustum rendered into each in the shadow pass.
+            cascade_vps = cascade_matrices(
+                self._sun_dir, self.camera.position,
+                self.camera.get_front(), scene.r_world_min.min(axis=0),
+                scene.r_world_max.max(axis=0))
+            params["cascade_vps"] = cascade_vps
+            params["shadow_uv_mat"] = self._t(np.stack(
+                [shadow_uv_transform(m) for m in cascade_vps]))
+            params["shadow_mask"] = self._t(static_mask | dynamic_mask,
+                                            torch.bool)
+        elif self.config.directional_light_shadows:
             # The static casters' map re-renders when the light frustum,
             # the caster set or their transforms change, as in the
             # reference viewer; the dynamic casters join it per frame in
@@ -1510,6 +1604,8 @@ class SceneViewerApplication:
                 params["shadow_vp"] = light_vp
                 params["dynamic_shadow_mask"] = self._t(dynamic_mask,
                                                         torch.bool)
+        if self.config.show_ui:
+            params["ui_overlay"] = self._t(self.ui_overlay(frame_time))
         if self.config.occlusion_culling:
             params["obj_world_min"] = self._t(scene.r_world_min.copy())
             params["obj_world_max"] = self._t(scene.r_world_max.copy())
@@ -1557,12 +1653,13 @@ class SceneViewerApplication:
         """One frame -> (H, W, 4) uint8 backbuffer on the app's device.
         The animation system poses the scene at elapsed_time first.  A
         still camera reuses the last frame's params, except under TAA,
-        where every frame steps the jitter, and while animations play or
-        an ocean exists, whose pose and phase follow elapsed_time."""
+        where every frame steps the jitter, while animations play or an
+        ocean exists, whose pose and phase follow elapsed_time, and with
+        the UI, whose label follows the frame time."""
         self.animation_system.animate(elapsed_time)
         cached = self._param_cache
         if cached is not None and self._jitter is None \
-                and self.ocean is None \
+                and self.ocean is None and not self.config.show_ui \
                 and not self.animation_system.states \
                 and cached[0] == self._frame_sig(frame_time):
             params = cached[1]
@@ -1580,11 +1677,12 @@ class SceneViewerApplication:
         frame 0's, as in the reference's chained bench); under TAA the
         camera stays still and camera_orbit is ignored, as in the
         reference: each frame takes its own jittered view-proj (and FSR2
-        jitter) from the host-side jitter sequence.  A time-varying scene
-        (animations or an ocean) poses and rebuilds every frame's params
-        at t0 + i * frame_time, the orbit included, as the reference's
-        time-varying chain does."""
-        if self.animation_system.states or self.ocean is not None:
+        jitter) from the host-side jitter sequence.  A time-varying frame
+        (animations, an ocean or the UI) poses and rebuilds every frame's
+        params at t0 + i * frame_time, the orbit included, as the
+        reference's time-varying chain does."""
+        if self.animation_system.states or self.ocean is not None \
+                or self.config.show_ui:
             return self._chain_time_varying(frame_time, t0, n, camera_orbit)
         cached = self._param_cache
         if cached is None or cached[0] != self._frame_sig(frame_time):

@@ -43,6 +43,7 @@ class AttachmentInfo:
     size_y: float = 1.0
     channels: int = 4
     dtype: Any = torch.float32
+    layers: int = 1
 
     def resolve_hw(self, sw_w: int, sw_h: int) -> tuple[int, int]:
         if self.size_class == SizeClass.SWAPCHAIN_RELATIVE:
@@ -52,7 +53,8 @@ class AttachmentInfo:
 
     def shape(self, sw_w: int, sw_h: int) -> tuple:
         h, w = self.resolve_hw(sw_w, sw_h)
-        return (h, w, self.channels) if self.channels > 1 else (h, w)
+        s = (h, w, self.channels) if self.channels > 1 else (h, w)
+        return (self.layers,) + s if self.layers > 1 else s
 
 
 @dataclass
@@ -152,6 +154,9 @@ class PassContext:
     def size(self, name: str) -> tuple[int, int]:
         return self._graph._resources[name].info.resolve_hw(
             self._graph._sw_w, self._graph._sw_h)
+
+    def backbuffer_size(self) -> tuple[int, int]:
+        return self._graph._sw_h, self._graph._sw_w
 
 
 class RenderGraph:

@@ -16,6 +16,7 @@ import torch
 
 from ..math.muglm import look_at_matrix, perspective
 from .hdr import clamped_floor
+from .shadow import _vsm_term, vsm_moments
 from .texture import quad_pack2d
 
 FACE_DIRS = np.array([
@@ -81,6 +82,15 @@ def pack_atlas(slices: torch.Tensor) -> torch.Tensor:
     return packed.reshape(NS * S * S, 4)
 
 
+def pack_atlas_vsm(slices: torch.Tensor) -> torch.Tensor:
+    """clusteredLightsShadowsVSM (clusterer.hpp ShadowType::VSM): (NS, S,
+    S) depth slices -> each slice's blurred moments, quad-packed to
+    (NS*S*S, 8), lanes [m1 m2] x [t00 t10 t01 t11]."""
+    NS, S, _ = slices.shape
+    packed = torch.stack([quad_pack2d(vsm_moments(s)) for s in slices])
+    return packed.reshape(NS * S * S, 8)
+
+
 def _clip_coords(x, y, S: int):
     """Start texel clipped to [0, S-1] + clamped fracs; clamping in float
     first equals XLA's saturating cast followed by the clip."""
@@ -143,9 +153,10 @@ def topk_shadow_terms(atlas_flat, vps_np, size: int, num_lights: int,
                       light_slice_np, light_kind_np, light_pos_np,
                       pixel_masks, world_pos, k: int = 4,
                       bias: float = 2e-3):
-    """Per-pixel PCF terms of the first K cluster-active shadowed lights.
-    pixel_masks (..., 1) int32.  -> (slot_light (K, ...) int32, -1 =
-    empty; terms (K, ...) f32)."""
+    """Per-pixel terms of the first K cluster-active shadowed lights: the
+    2x2 PCF compare, or on an (NS*S*S, 8) moment atlas the bilinear
+    moments' Chebyshev bound (vsm.h).  pixel_masks (..., 1) int32.  ->
+    (slot_light (K, ...) int32, -1 = empty; terms (K, ...) f32)."""
     shape = world_pos.shape[:-1]
     dev = world_pos.device
     slot_light = [torch.full(shape, -1, dtype=torch.int32, device=dev)
@@ -175,14 +186,23 @@ def topk_shadow_terms(atlas_flat, vps_np, size: int, num_lights: int,
             slot_fy[s] = torch.where(place, fy, slot_fy[s])
             slot_in[s] = torch.where(place, inside, slot_in[s])
         taken = taken + active.to(torch.int32)
+    vsm = atlas_flat.shape[-1] == 8
     terms = []
     for s in range(k):
         quad = atlas_flat[slot_flat[s]]
         fx, fy = slot_fx[s], slot_fy[s]
-        c = (slot_z[s][..., None] >= quad - bias).to(torch.float32)
-        top = c[..., 0] * (1 - fx) + c[..., 1] * fx
-        bot = c[..., 2] * (1 - fx) + c[..., 3] * fx
-        term = top * (1 - fy) + bot * fy
+        if vsm:
+            q = quad.reshape(quad.shape[:-1] + (4, 2))
+            fx2, fy2 = fx[..., None], fy[..., None]
+            top = q[..., 0, :] * (1 - fx2) + q[..., 1, :] * fx2
+            bot = q[..., 2, :] * (1 - fx2) + q[..., 3, :] * fx2
+            mm = top * (1 - fy2) + bot * fy2
+            term = _vsm_term(slot_z[s], mm[..., 0], mm[..., 1])
+        else:
+            c = (slot_z[s][..., None] >= quad - bias).to(torch.float32)
+            top = c[..., 0] * (1 - fx) + c[..., 1] * fx
+            bot = c[..., 2] * (1 - fx) + c[..., 3] * fx
+            term = top * (1 - fy) + bot * fy
         term = torch.where(slot_in[s], term, torch.ones_like(term))
         terms.append(torch.where(slot_light[s] >= 0, term,
                                  torch.ones_like(term)))

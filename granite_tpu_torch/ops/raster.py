@@ -11,7 +11,8 @@ top-left fill rule; pixel centers at (x + 0.5, y + 0.5).
 
 `rasterize` is the O(pixels x triangles) reference the binned kernels
 (ops/raster_binned.py, ops/raster_fused.py) are tested against; the
-renderer never calls it.
+scene renderer never calls it, the one-triangle demo
+(app/triangle_demo.py) does, as the JAX demo does.
 """
 
 from __future__ import annotations
@@ -189,3 +190,28 @@ def rasterize(setup: TriangleSetup, width: int, height: int,
         depth = torch.where(hit, best_z, depth)
         tri = torch.where(hit, best.to(torch.int32) + c0, tri)
     return depth, tri
+
+
+def interpolate_with_derivs(attrs: torch.Tensor, indices: torch.Tensor,
+                            tri: torch.Tensor, setup: TriangleSetup, px, py):
+    """Perspective-correct interpolation of vertex attributes at every
+    pixel, with analytic screen-space derivatives: u = N / D with N and D
+    linear in screen space, so du/dx = (N_x D - N D_x) / D^2.  attrs (V,
+    C); tri (H, W), -1 = none (those pixels take triangle 0's values).
+    -> (value, du_dx, du_dy), each (H, W, C)."""
+    t = tri.clamp_min(0).long()
+    adj = setup.adj[t]                                   # (H, W, 3, 3)
+    off = setup.offset[t]
+    av = attrs[indices.long()[t]]                        # (H, W, 3, C)
+    lam = (adj[..., 0] * (px - off[..., 0])[..., None]
+           + adj[..., 1] * (py - off[..., 1])[..., None]
+           + adj[..., 2])
+    d = lam.sum(-1)
+    dx = adj[..., 0].sum(-1)
+    dy = adj[..., 1].sum(-1)
+    n = (av * lam[..., None]).sum(-2)
+    nx = (av * adj[..., 0][..., None]).sum(-2)
+    ny = (av * adj[..., 1][..., None]).sum(-2)
+    d = torch.where(d.abs() < 1e-20, torch.full_like(d, 1e-20), d)[..., None]
+    val = n / d
+    return val, (nx - val * dx[..., None]) / d, (ny - val * dy[..., None]) / d

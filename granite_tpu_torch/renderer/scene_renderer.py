@@ -42,7 +42,8 @@ from ..ops.shade_fused import (
     CLUSTER_TILE, P_FIXED, fused_light_table, shade_planes_fused,
 )
 from ..ops.shadow import (
-    sample_directional_shadow, sample_vsm_shadow, sample_vsm_shadow_tiled,
+    sample_cascaded_shadow, sample_directional_shadow, sample_vsm_shadow,
+    sample_vsm_shadow_tiled,
 )
 from ..ops.texture import build_packed_lod_strip_np, lod_from_derivs
 from ..ops.tile_sampler import sample_lod
@@ -649,13 +650,15 @@ def motion_vectors(prev_pos, covered, depth, prev_vp_uv, cam_reproj,
 # ---------------------------------------------------------------------------
 
 def compute_shadow_term(pos, covered, shadow_map, shadow_uv_mat,
-                        shadow_tiled: bool = False,
+                        pcf_wide: bool = False, shadow_tiled: bool = False,
                         shadow_half_res: bool = False):
-    """Directional shadow term per pixel.  (S, S, 2) VSM moments: the
-    tiled route (kernel B3T, half-res term) when shadow_tiled, else the
-    per-pixel classic route.  (S, S) depth: 2x2 PCF, at half res + a
-    bilinear upsample when asked and the frame is even-sized and >= 64
-    rows."""
+    """Directional shadow term per pixel, in the reference's order of
+    checks.  (S, S, 2) VSM moments: the tiled route (kernel B3T, half-res
+    term) when shadow_tiled, else the per-pixel classic route.  (C, S, S)
+    cascades with (C, 4, 4) uv transforms: the cascade blend, at full
+    resolution whatever shadow_half_res says.  (S, S) depth: 2x2 PCF, or
+    the 6x6 windowed kernel when pcf_wide, at half res + a bilinear
+    upsample when asked and the frame is even-sized and >= 64 rows."""
     if shadow_map is None:
         return 1.0
     if shadow_map.dim() == 3 and shadow_map.shape[-1] == 2:
@@ -663,15 +666,16 @@ def compute_shadow_term(pos, covered, shadow_map, shadow_uv_mat,
             return sample_vsm_shadow_tiled(shadow_map, shadow_uv_mat, pos,
                                            covered)
         return sample_vsm_shadow(shadow_map, shadow_uv_mat, pos)
-    if shadow_map.dim() != 2:
-        raise NotImplementedError("cascaded shadow maps are not part of "
-                                  "the port yet")
+    if shadow_map.dim() == 3:
+        return sample_cascaded_shadow(shadow_map, shadow_uv_mat, pos,
+                                      wide=pcf_wide)
     H, W = pos.shape[:2]
     if shadow_half_res and H % 2 == 0 and W % 2 == 0 and H >= 64:
         th = sample_directional_shadow(shadow_map, shadow_uv_mat,
-                                       pos[::2, ::2])
+                                       pos[::2, ::2], wide=pcf_wide)
         return resize_bilinear(th[..., None], H, W)[..., 0]
-    return sample_directional_shadow(shadow_map, shadow_uv_mat, pos)
+    return sample_directional_shadow(shadow_map, shadow_uv_mat, pos,
+                                     wide=pcf_wide)
 
 
 def reflection(surf, camera_pos, levels: int):
@@ -750,7 +754,7 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
                  lights=None, z_masks=None, tile_masks=None, width: int = 0,
                  height: int = 0, background=None, z_near: float = 0.1,
                  z_far: float = 1000.0, env=None, cluster_shadows=None,
-                 ao=None, shadow_tiled: bool = False,
+                 ao=None, pcf_wide: bool = False, shadow_tiled: bool = False,
                  shadow_half_res: bool = False, view=None,
                  vol_diffuse=None):
     """Kernel B4's inputs for a surf dict: the gather-bound products
@@ -765,7 +769,7 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
     H, W = surf["metallic"].shape
     pos = surf["pos"]
     shadow_term = compute_shadow_term(pos, surf["covered"], shadow_map,
-                                      shadow_uv_mat, shadow_tiled,
+                                      shadow_uv_mat, pcf_wide, shadow_tiled,
                                       shadow_half_res)
     shadow_term = torch.broadcast_to(
         torch.as_tensor(shadow_term, dtype=torch.float32, device=dev),

@@ -8,7 +8,7 @@ import numpy as np
 
 from ..math.muglm import (
     INFINITE_FAR_PLANE, look_at_quat, mat4_cast, ortho, perspective,
-    translate,
+    quat_rotate, translate,
 )
 
 
@@ -55,6 +55,13 @@ class Camera:
         return perspective(self.fovy, self.aspect, self.znear,
                            self.zfar if self.zfar > 0 else
                            INFINITE_FAR_PLANE)
+
+    def get_front(self) -> np.ndarray:
+        return quat_rotate(_conj(self.rotation), [0, 0, -1])
+
+
+def _conj(q):
+    return np.array([q[0], -q[1], -q[2], -q[3]], np.float32)
 
 
 class FPSCamera(Camera):

@@ -38,8 +38,9 @@ def test_port_imports_without_jax():
                                      "GRANITE_TPU")))
     assert int(lines["MODULES"]) >= 20
     # the ocean, terrain, decal and meshlet modules, the stat sink (the
-    # native codec's loader included), the occlusion and volume modules
-    # and the compile probe are among them
+    # native codec's loader included), the occlusion and volume modules,
+    # the compile probe, the UI and event copies and the triangle demo
+    # are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
         "renderer.ground", "renderer.ocean", "scene.gltf",
@@ -48,7 +49,9 @@ def test_port_imports_without_jax():
         "utils.timer", "utils.image_compare", "app.video_sink",
         "ops.hiz", "renderer.raster_dispatch",
         "renderer.volumetric_diffuse", "tools",
-        "tools.compile_parallel_probe")} \
+        "tools.compile_parallel_probe", "ui", "ui.flat_renderer",
+        "ui.font", "ui.sprite", "ui.widgets", "event", "event.manager",
+        "app.application", "app.triangle_demo")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"

@@ -203,11 +203,8 @@ def test_hdr_chain_ops_match():
 
 def test_unsupported_knob_raises():
     with pytest.raises(NotImplementedError):
-        _render_port({**CONFIGS["deferred_taa_fog"], "showUi": True})
-    with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
-    for knob in ({"msaa": 4}, {"textureStreaming": True},
-                 {"directionalLightShadowsCascaded": True}):
+    for knob in ({"textureStreaming": True}, {"envTileSampler": False}):
         with pytest.raises(NotImplementedError):
             _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
 
