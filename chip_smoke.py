@@ -133,6 +133,40 @@
                     (1e-6) and B4 (3e-4 relative) against their plain
                     versions at 3840x2160, and B3 and B4 refusing float16
                     inputs.
+     streaming:     the bench config with textureStreaming on the bench
+                    scene written as glTF by the port's exporter, each of
+                    its 5 materials with 4 STREAM_IMAGE^2 images from a
+                    numpy seed and their .gtpx sidecars from the port's
+                    encoders (tests/streaming_fixtures.py: base colour
+                    BC7/BC3/RGBA8, metallic-roughness BC1, normal BC5,
+                    emissive BC6H), streamed at texture_size 512, the
+                    camera framing the bounds.  Set-up prints the scene
+                    write and the encodes apart, then the host ms of one
+                    image of each format.  Phase a (no budget): frame 0's
+                    bundle rows must equal the fallback strip; then
+                    render_frame + post_frame (the device idle before
+                    each latch, so its upload time is the copy alone)
+                    until every asset is resident, within STREAM_CAP_S;
+                    each latch's rows, strip build and upload ms; these
+                    frames are its warm-up.  Then 8 timed and 2 traced
+                    frames of render_frame + post_frame, orbiting (not
+                    chained: the chain never latches), through the same
+                    timing and gates as every path, B2 once, B3 twice
+                    and B4 once in each timed frame; every row on the
+                    card byte-equal to the strip the CPU code builds from
+                    the same files; the resident frame differs from
+                    frame 0 (both from a fresh history) in >= 0.1% of the
+                    pixels; B2 (exact) and both B3 fetches (1e-6) against
+                    their plain versions on the last timed frame's inputs,
+                    the material fetch reading the 5 streamed rows.  Phase b
+                    (textureBudgetMB STREAM_BUDGET_MB, a new viewer): 10
+                    frames, current_cost <= the budget after every
+                    iterate(), at least one eviction, every frame through
+                    the image gate; rows latched and evictions a frame.
+                    Then the sidecars are deleted: the scene streamed to
+                    residency must render bit-equal to it with
+                    textureStreaming false (same bundle bytes, same
+                    kernels).
    deferred_post and fsr2 are TAA paths: their chained camera stands
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
@@ -151,7 +185,11 @@
    renderTargetFp16, deferred_taa_fog with showUi, each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
-   environment), and "true" sends the CPU down the same ones.  Then the
+   environment), and "true" sends the CPU down the same ones.  Then
+   deferred_hdr with textureStreaming on the test scene with four
+   STREAM_SMALL_IMAGE^2 images a material and their sidecars, each device
+   latching until every asset is resident (ThreadGroup.wait_idle between
+   latches), then 2 frames from a fresh history.  Then the
    triangle demo (BASELINE config 1) through `python -m
    granite_tpu_torch.app.triangle_demo`'s entry point at 1280x720, 4
    frames: image gate, and its PNG against the same frame on the CPU.
@@ -220,6 +258,16 @@ MIN_CASCADE_COVERAGE = 0.5
 # msaa 4 (ordered-grid supersampling: B2, B3 and B4 at 3840x2160, the
 # tonemap's 2:1 box down to 1920x1080) with float16 HDR targets.
 MSAA_CONFIG = {**BENCH_CONFIG, "msaa": 4, "renderTargetFp16": True}
+# Texture streaming: the bench scene written as glTF with four
+# STREAM_IMAGE^2 images a material (20 in all) and their .gtpx sidecars,
+# streamed at the viewer's texture_size 512 (4 MiB decoded an image);
+# phase b bounds the decoded bytes at STREAM_BUDGET_MB (12 images).
+STREAM_CONFIG = {**BENCH_CONFIG, "textureStreaming": True}
+STREAM_IMAGE, STREAM_SEED = 1024, 23
+STREAM_BUDGET_MB, STREAM_BUDGET_FRAMES = 48, 10
+STREAM_CAP_S = 30.0
+# the small streamed test scene of the cross-device check (phase 4)
+STREAM_SMALL_IMAGE = 64
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -231,7 +279,8 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "occlusion": (OCCLUSION_CONFIG, ("B1", "B3", "B4")),
               "volumetric": (VOLUMES_CONFIG, ("B1", "B2", "B3", "B4")),
               "cascades": (CASCADES_CONFIG, ("B1", "B2", "B3", "B4")),
-              "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4")),
+              "streaming": (STREAM_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
 # decal node, on the animated `.scene`, knobs added, camera (eye, target)
 # or None).  Each runs with materialTileSampler "true", so both devices
@@ -1044,9 +1093,10 @@ def kernel_phases(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def device_busy_ms(app, frames: int) -> tuple[float, dict]:
-    """Device time a chained frame keeps the card busy: the kernels,
-    copies and sets torch.profiler records over `frames` more frames,
+def device_busy_ms(app, frames: int, run) -> tuple[float, dict]:
+    """Device time a frame keeps the card busy: the kernels, copies and
+    sets torch.profiler records over `frames` more frames (run(app,
+    frames)),
     without the named ranges (they span kernels).  Also each named range's
     device ms a frame: the render graph's `pass:<name>` ranges and the
     viewer's `decals` blend, each the device time of the kernels launched
@@ -1058,8 +1108,7 @@ def device_busy_ms(app, frames: int) -> tuple[float, dict]:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        app.render_frames_chained(FRAME_TIME, FRAME_TIME, frames,
-                                  camera_orbit=ORBIT)
+        run(app, frames)
         torch.cuda.synchronize()
     def named(key):
         return key.startswith("pass:") or key == "decals"
@@ -1476,14 +1525,39 @@ def triangle_demo() -> dict:
     return dict(psnr=p, wall_s=wall)
 
 
+def chained_frames(app, n: int):
+    """n chained frames, the camera yawed ORBIT a frame (the bench paths'
+    loop).  -> the last backbuffer, on the device."""
+    return app.render_frames_chained(FRAME_TIME, FRAME_TIME, n,
+                                     camera_orbit=ORBIT)
+
+
+def stream_frames(app, n: int):
+    """n frames of render_frame + post_frame, the headless runner's
+    unchained loop (the streaming latch after every frame; the chain never
+    latches), the camera yawed ORBIT a frame.  -> the last backbuffer."""
+    out = None
+    for i in app._orbit(n, ORBIT):
+        out = app.render_frame(FRAME_TIME, (i + 1) * FRAME_TIME)
+        app.post_frame()
+    return out
+
+
 def main_path(name: str, results: dict) -> dict:
     """One bench frame path through the kernels; returns its launches
-    (gltf_animated adds its B1 case to results)."""
+    (gltf_animated, cascades, msaa and streaming add their cases to
+    results).  The streaming path renders its frames through
+    stream_frames, the others through chained_frames."""
     import numpy as np
     import torch
     from granite_tpu_torch.kernels import build as K
 
     cfg, required = MAIN_PATHS[name]
+    streaming = name == "streaming"
+    run = stream_frames if streaming else chained_frames
+    if streaming:
+        files = tempfile.TemporaryDirectory()
+        scene, paths = write_streamed_scene(files.name)
     K.reset_launch_counts()
     t0 = time.monotonic()
     if name == "gltf_animated":
@@ -1496,6 +1570,8 @@ def main_path(name: str, results: dict) -> dict:
         files.cleanup()
     elif name in ("occlusion", "cascades"):
         app = walkthrough_app(cfg)
+    elif streaming:
+        app = make_app(cfg, False, "cuda", scene=scene)
     else:
         app = make_app(cfg, True, "cuda")
     app.swapchain_updated(WIDTH, HEIGHT)
@@ -1505,7 +1581,14 @@ def main_path(name: str, results: dict) -> dict:
         t_check = time.monotonic()
         decal_check(app)
         t0 += time.monotonic() - t_check
-    app.render_frames_chained(FRAME_TIME, 0.0, WARMUP, camera_orbit=ORBIT)
+    if streaming:
+        # frame 0 and the frames to full residency are its warm-up
+        frame0 = streaming_warmup(app)
+        warmup = "the frames to residency"
+    else:
+        app.render_frames_chained(FRAME_TIME, 0.0, WARMUP,
+                                  camera_orbit=ORBIT)
+        warmup = f"{WARMUP} warm-up frames"
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
     start = torch.cuda.Event(enable_timing=True)
@@ -1530,8 +1613,7 @@ def main_path(name: str, results: dict) -> dict:
     app.graph.execute = counted
     t1 = time.monotonic()
     start.record()
-    out = app.render_frames_chained(FRAME_TIME, FRAME_TIME, FRAMES,
-                                    camera_orbit=ORBIT)
+    out = run(app, FRAMES)
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.monotonic() - t1) * 1e3 / FRAMES
@@ -1539,17 +1621,18 @@ def main_path(name: str, results: dict) -> dict:
     launches = dict(K.LAUNCHES)
     del app.graph.execute
     b1_frames = [f["B1"] for f in frames]
-    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES)
+    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES, run)
     img = out.cpu().numpy()
     ok, means = image_gate(img)
     stats = app.frame_stats()
     # Under TAA render_frames_chained ignores camera_orbit, as the
     # reference's chained TAA does: a still camera, only the jitter moves.
     camera = "still, jittered" if app._jitter is not None else "orbiting"
+    loop = "render_frame + post_frame" if streaming else "chained"
     log(f"main path {name} {WIDTH}x{HEIGHT} (renders {app._rw}x{app._rh}):"
         f" {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
-        f"clock) over {FRAMES} frames, camera {camera}; setup + {WARMUP} "
-        f"warm-up frames {setup_s:.1f} s; device busy {busy_ms:.3f} "
+        f"clock) over {FRAMES} {loop} frames, camera {camera}; setup + "
+        f"{warmup} {setup_s:.1f} s; device busy {busy_ms:.3f} "
         f"ms/frame over {TRACED_FRAMES} traced frames, idle share "
         f"{1.0 - busy_ms / ms:.3f} of the untraced frame")
     log(f"image gate ok={ok} rgb means {means} shape {img.shape} "
@@ -1560,7 +1643,7 @@ def main_path(name: str, results: dict) -> dict:
         f"frames {b1_frames}" + (
             "; B2/B3/B4 in each "
             f"{[(f['B2'], f['B3'], f['B4']) for f in frames]}"
-            if name == "msaa" else ""))
+            if name in ("msaa", "streaming") else ""))
     # max_bin_entries and the overflow/clamp counters: printed, gated only
     # on the time-varying paths (the reference clamps and drops the same
     # way; the port counts)
@@ -1576,6 +1659,10 @@ def main_path(name: str, results: dict) -> dict:
         cascades_check(app, stats, frames, last["params"], results)
     if name == "msaa":
         msaa_check(app, frames, results)
+    if streaming:
+        streaming_check(app, frames, frame0, last["params"], results,
+                        scene, paths)
+        files.cleanup()
     if name == "gltf_animated":
         check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
               f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
@@ -1598,6 +1685,296 @@ def main_path(name: str, results: dict) -> dict:
     del app
     torch.cuda.empty_cache()
     return launches
+
+
+def resident(app) -> bool:
+    return all(a.resident for a in app.packed.streamer.manager._assets)
+
+
+def stream_to_residency(app, sync_each: bool = True, wait_idle=None):
+    """From frame 0 on: render_frame (a still camera) then post_frame until
+    every asset is resident, at most STREAM_CAP_S.  With sync_each the
+    device is idle before each post_frame, so its upload time is the copy
+    alone; wait_idle (a ThreadGroup) makes the decodes finish between
+    latches.  -> (frame 0, one dict a latch, seconds, frames rendered)."""
+    import torch
+    st = app.packed.streamer
+    latches, first = [], None
+    t = time.monotonic()
+    while True:
+        out = app.render_frame(FRAME_TIME, 0.0)
+        if first is None:
+            first = out.clone()
+        if sync_each:
+            torch.cuda.synchronize()
+        before = dict(st.stats)
+        t_l = time.perf_counter()
+        app.post_frame()
+        latches.append(dict(
+            rows=st.stats["latched"] - before["latched"],
+            build_ms=(st.stats["build_s"] - before["build_s"]) * 1e3,
+            upload_ms=(st.stats["upload_s"] - before["upload_s"]) * 1e3,
+            post_frame_ms=(time.perf_counter() - t_l) * 1e3,
+            resident=sum(a.resident for a in st.manager._assets)))
+        if wait_idle is not None:
+            wait_idle.wait_idle()
+        if resident(app):
+            return first, latches, time.monotonic() - t, len(latches)
+        check(time.monotonic() - t < STREAM_CAP_S,
+              f"streaming: {latches[-1]['resident']} of "
+              f"{len(st.manager._assets)} assets resident after "
+              f"{STREAM_CAP_S} s")
+
+
+def host_strips(app) -> list:
+    """Each bundle's strip as the port's CPU code builds it from the
+    scene's files (sidecars where present), apart from the streamer: a
+    bundle a thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    from granite_tpu_torch.assets.streaming import ImageInstantiator
+    from granite_tpu_torch.filesystem import AssetClass
+    from granite_tpu_torch.renderer.scene_renderer import build_bundle_strip
+    st, info = app.packed.streamer, app.info
+    inst = ImageInstantiator(info.images, info.image_srgb, info.image_paths,
+                             st.base_size)
+
+    def strip(key):
+        imgs = []
+        for slot, tex in enumerate(key):
+            cls = AssetClass.NORMAL if slot == 2 else AssetClass.COLOR
+            img = st.tex_to_image.get(tex)
+            imgs.append(inst.fallback(cls) if img is None else
+                        inst.instantiate(f"img://{img}", cls)[0])
+        return build_bundle_strip(imgs)
+
+    with ThreadPoolExecutor(len(st.bundle_keys)) as pool:
+        return list(pool.map(strip, st.bundle_keys))
+
+
+def decode_ms(info, paths) -> dict:
+    """Host ms of one image of each sidecar format: the codec's decode
+    alone, and the streamer's whole instantiation (decode, sRGB ->
+    linear, resize to 512^2)."""
+    import numpy as np
+    from streaming_fixtures import sidecar_format
+    from granite_tpu_torch.assets.streaming import ImageInstantiator
+    from granite_tpu_torch.filesystem import AssetClass
+    from granite_tpu_torch.native import texture as TX
+    inst = ImageInstantiator(info.images, info.image_srgb, paths, 512)
+    out: dict = {}
+    for i, path in enumerate(paths):
+        fmt = sidecar_format(info, i)
+        if fmt in out:
+            continue
+        t = time.perf_counter()
+        name, w, h, _l, _f, payload = TX.gtpx_load(path + ".gtpx")
+        data = np.frombuffer(payload, np.uint8)
+        if name == "bc6h":
+            TX.decode_bc6h(data, w, h)
+        elif name != "rgba8":
+            TX.decode_blocks(name, data, w, h)
+        t1 = time.perf_counter()
+        inst.instantiate(f"img://{i}", AssetClass.COLOR)
+        out[fmt] = dict(decode_ms=(t1 - t) * 1e3,
+                        instantiate_ms=(time.perf_counter() - t1) * 1e3)
+    return out
+
+
+def write_streamed_scene(directory: str) -> tuple[str, list]:
+    """The streaming path's scene: the bench scene as glTF with
+    STREAM_IMAGE^2 images and their .gtpx sidecars; prints the write's and
+    the encodes' seconds and each format's host decode ms.  -> (the glTF
+    path, each image's file)."""
+    from streaming_fixtures import image_files, write_textured_scene
+    from granite_tpu_torch.app.bench_scene import build_bench_scene
+    t0 = time.monotonic()
+    info = build_bench_scene()
+    written = write_textured_scene(info, directory, "bench.gltf",
+                                   STREAM_IMAGE, STREAM_SEED)
+    write_s = time.monotonic() - t0
+    paths = image_files(written["path"], len(info.images))
+    decodes = decode_ms(info, paths)
+    log(f"streaming set-up: scene written (glTF + {len(paths)} PNGs "
+        f"{STREAM_IMAGE}^2) in {written['export_s']:.2f} s, sidecars in "
+        f"{written['sidecars_s']:.2f} s (wall, one encode a thread; encode "
+        "s summed by format "
+        f"{ {k: round(v, 3) for k, v in written['encode_s'].items()} }), "
+        f"{write_s:.2f} s in all with the images")
+    per_format = {k: (round(v["decode_ms"], 2), round(v["instantiate_ms"], 2))
+                  for k, v in decodes.items()}
+    log(f"streaming host ms for one {STREAM_IMAGE}^2 image by format "
+        f"(decode alone, whole instantiation to 512^2): {per_format}")
+    return written["path"], paths
+
+
+def streaming_warmup(app):
+    """Phase a up to residency: frame 0's bundle rows must be the fallback
+    strip; then stream_to_residency, each latch's rows, strip build and
+    upload ms printed.  -> frame 0's backbuffer."""
+    import torch
+    st = app.packed.streamer
+    fallback = torch.from_numpy(st.fallback_strip()).to(app.device)
+    check(all(torch.equal(row, fallback) for row in app.packed.bundles),
+          "frame 0's bundle rows are not the fallback strip")
+    frame0, latches, res_s, res_frames = stream_to_residency(app)
+    table = [(l["rows"], round(l["build_ms"], 1), round(l["upload_ms"], 1),
+              round(l["post_frame_ms"], 1), l["resident"]) for l in latches]
+    log(f"streaming phase a: all {len(st.manager._assets)} assets resident "
+        f"after {res_frames} frames, {res_s:.2f} s; latches (rows, build "
+        f"ms, upload ms, post_frame ms, resident) {table}")
+    rows = sum(l["rows"] for l in latches)
+    log(f"streaming latch host ms a bundle row: strip build "
+        f"{sum(l['build_ms'] for l in latches) / rows:.2f}, upload "
+        f"{sum(l['upload_ms'] for l in latches) / rows:.2f} ({rows} rows, "
+        f"{st.fallback_strip().nbytes / 2**20:.1f} MiB each)")
+    return frame0
+
+
+def streaming_check(app, frames: list, frame0, params, results: dict,
+                    scene: str, paths: list) -> None:
+    """The streaming path's gates after phase a's timed frames: B2 once,
+    B3 twice and B4 once in each; every bundle row on the card byte-equal
+    to the host strip; the resident frame differs from frame 0; B2 and
+    both B3 fetches against their plain versions on the last timed
+    frame's inputs (the material fetch reads the streamed rows); then
+    phase b and the scene without sidecars."""
+    import torch
+    per_frame = [(f["B2"], f["B3"], f["B4"]) for f in frames]
+    check(len(per_frame) == FRAMES and all(f == (1, 2, 1) for f in per_frame),
+          f"B2/B3/B4 launches in the timed frames: {per_frame}")
+    want = host_strips(app)
+    for b, strip in enumerate(want):
+        check(app.packed.bundles[b].cpu().numpy().tobytes()
+              == strip.tobytes(),
+              f"streamed bundle row {b} differs from the host strip")
+    app._history = app.graph.initial_history(app.device)
+    changed = backbuffer_diff(frame0, app.render_frame(FRAME_TIME, 0.0),
+                              levels=0)
+    log(f"streaming: the resident frame differs from frame 0 in {changed} "
+        f"pixels; {len(want)} bundle rows byte-equal to the host strips")
+    check(changed >= int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1,
+          f"the resident frame differs from frame 0 in {changed} pixels")
+    planes, cov, _b2 = b2_case(app, params, WIDTH, HEIGHT)
+    surf = surface(app, planes, cov)
+    for c in b3_main_cases(app, params, planes, cov, surf,
+                           f"streamed rows {WIDTH}x{HEIGHT}"):
+        add_case(results, "B3", c)
+    del planes, cov, surf
+    streaming_budget(scene)
+    streaming_without_sidecars(scene, paths)
+    torch.cuda.empty_cache()
+
+
+def streaming_budget(scene: str) -> None:
+    """Phase b: a new viewer at textureBudgetMB STREAM_BUDGET_MB,
+    STREAM_BUDGET_FRAMES frames of render_frame + post_frame: current_cost
+    within the budget after every iterate(), at least one eviction, every
+    frame through the image gate."""
+    import torch
+    app = make_app({**STREAM_CONFIG, "textureBudgetMB": STREAM_BUDGET_MB},
+                   False, "cuda", scene=scene)
+    app.swapchain_updated(WIDTH, HEIGHT)
+    st = app.packed.streamer
+    manager = st.manager
+    costs, iterate = [], manager.iterate
+
+    def iterate_checked():
+        iterate()
+        costs.append(manager.current_cost)
+
+    manager.iterate = iterate_checked
+    evictions, latched, outs = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.monotonic()
+    for i in app._orbit(STREAM_BUDGET_FRAMES, ORBIT):
+        e0, l0 = manager.evictions, st.stats["latched"]
+        outs.append(app.render_frame(FRAME_TIME, i * FRAME_TIME))
+        app.post_frame()
+        evictions.append(manager.evictions - e0)
+        latched.append(st.stats["latched"] - l0)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.monotonic() - t) * 1e3 / STREAM_BUDGET_FRAMES
+    ms = start.elapsed_time(end) / STREAM_BUDGET_FRAMES
+    gates = [image_gate(o.cpu().numpy()) for o in outs]
+    budget = STREAM_BUDGET_MB * 2**20
+    log(f"streaming phase b (textureBudgetMB {STREAM_BUDGET_MB}): "
+        f"{ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
+        f"clock) over {STREAM_BUDGET_FRAMES} frames; rows latched a frame "
+        f"{latched}, evictions a frame {evictions}; current_cost after each"
+        f" iterate (MiB) {[round(c / 2**20, 1) for c in costs]}; "
+        f"{sum(a.resident for a in manager._assets)} resident at the end")
+    check(all(c <= budget for c in costs),
+          f"current_cost over the budget: {costs}")
+    check(manager.evictions >= 1, "phase b evicted nothing")
+    check(all(g[0] for g in gates),
+          f"phase b image gate failed: {[g[1] for g in gates if not g[0]]}")
+
+
+def streaming_without_sidecars(scene: str, paths: list) -> None:
+    """The sidecars deleted, the scene streamed to residency renders
+    bit-equal to it with textureStreaming false (the same bundle bytes
+    through the same kernels)."""
+    import torch
+    for path in paths:
+        os.unlink(path + ".gtpx")
+    imgs, bundles = {}, {}
+    for label, cfg in (("streamed", STREAM_CONFIG),
+                       ("unstreamed", BENCH_CONFIG)):
+        app = make_app(cfg, False, "cuda", scene=scene)
+        app.swapchain_updated(WIDTH, HEIGHT)
+        if label == "streamed":
+            stream_to_residency(app, sync_each=False)
+            app._history = app.graph.initial_history(app.device)
+        imgs[label] = app.render_frame(FRAME_TIME, 0.0)
+        bundles[label] = app.packed.bundles
+        del app
+    same_rows = torch.equal(bundles["streamed"], bundles["unstreamed"])
+    same_frame = torch.equal(imgs["streamed"], imgs["unstreamed"])
+    differ = backbuffer_diff(imgs["streamed"], imgs["unstreamed"], levels=0)
+    log(f"streaming without sidecars, resident, against textureStreaming "
+        f"false: bundles equal {same_rows}, frames equal {same_frame} "
+        f"({differ} pixels differ)")
+    check(same_rows and same_frame,
+          "streaming without sidecars is not bit-equal to no streaming")
+
+
+def streaming_cross_device() -> None:
+    """The small streamed test scene (four STREAM_SMALL_IMAGE^2 images a
+    material, sidecars, deferred_hdr) at 128x72, resident, on the card
+    and on the CPU: each device latches until every asset is resident
+    (its decodes finishing between latches), then renders 2 frames from
+    a fresh history; luma PSNR >= 48 dB."""
+    import torch
+    from golden_utils import CONFIGS, psnr
+    from streaming_fixtures import write_textured_scene
+    from granite_tpu_torch.app.bench_scene import build_default_test_scene
+    from granite_tpu_torch.threading_ import ThreadGroup
+    files = tempfile.TemporaryDirectory()
+    path = write_textured_scene(build_default_test_scene(), files.name,
+                                "small.gltf", STREAM_SMALL_IMAGE,
+                                STREAM_SEED)["path"]
+    cfg = {**CONFIGS["deferred_hdr"], "textureStreaming": True,
+           "materialTileSampler": "true"}
+    imgs = {}
+    for device in ("cuda", "cpu"):
+        app = make_app(cfg, False, device, scene=path)
+        app.swapchain_updated(128, 72)
+        stream_to_residency(app, sync_each=False,
+                            wait_idle=ThreadGroup.get())
+        app._history = app.graph.initial_history(app.device)
+        out = None
+        for i in range(2):
+            out = app.render_frame(FRAME_TIME, i * FRAME_TIME)
+        imgs[device] = out.cpu().numpy()
+    files.cleanup()
+    p = psnr(imgs["cuda"], imgs["cpu"])
+    log(f"cross-device deferred_hdr streamed textures 128x72: cuda vs cpu "
+        f"luma PSNR {p:.2f} dB")
+    check(p >= PSNR_GATE_DB,
+          f"cross-device streamed textures PSNR {p:.2f} < {PSNR_GATE_DB}")
 
 
 def cross_device() -> None:
@@ -1660,6 +2037,7 @@ def main() -> int:
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     cross_device()
+    streaming_cross_device()
     triangle = triangle_demo()
     log(f"phase 4 took {time.monotonic() - t:.1f} s; the run "
         f"{time.monotonic() - t_start:.1f} s")

@@ -9,15 +9,21 @@ elapsed time 0, then the timed frames at FrameTimer's frame and elapsed
 times ((i + 1) x step under --time-step, the wall clock without it), or
 with --chain one render_frames_chained(step, 0, frames) to warm up and
 one render_frames_chained(step, step, frames) timed.  The timed frames
-run back to back with no host readback until the end.  The stat JSON
+run back to back with no host readback until the end; each non-chained
+one is followed by app.post_frame() (texture streaming's latch, file
+notifications, hot reload), as in the JAX runner.  The chained path calls
+no post_frame in either runner, so a streamed scene under --chain keeps
+its fallback textures.  The stat JSON
 keeps the JAX engine's schema (core/stats.StatSink): averageFrameTimeUs
 on the host clock around work that ends in a device synchronize; gpu,
 the card's name or "cpu"; performanceCounters compileTimeMs (warm-up
 frames, the kernel build included), wallTimePerFrameUs and, with
 --png-reference-path, the PSNR counters of utils/image_compare;
 passTimesUs, each `pass:<name>` range's device time a frame (CPU time on
-the CPU) when --profile traces the frames, else {}.  A reference image
-of another size exits 1; --chain with --video-path is refused (exit 2).
+the CPU) when --profile traces the frames, else {} (GRANITE_DEBUG_GRAPH's
+host-clock per-pass ms stay in the app's breadcrumbs and pass_stats).
+A reference image of another size exits 1; --chain with --video-path is
+refused (exit 2).
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ def run_headless(app, args: argparse.Namespace) -> int:
             for _ in range(frames):
                 ft = timer.frame(fixed_step=args.time_step)
                 out = app.render_frame(ft, timer.get_elapsed())
+                app.post_frame()
                 if sink is not None:
                     sink.push_frame(out.cpu().numpy())
         _sync(app.device)

@@ -33,7 +33,10 @@ PCFKernelWide takes the 6x6 windowed PCF; clusteredLightsShadowsVSM packs
 the light atlas as blurred moments; msaa N supersamples at sqrt(N) x the
 render scale, which the tonemap's resize reduces; renderTargetFp16 makes
 the HDR colour targets float16; showUi composites the host-rendered stats
-window after the tonemap.  Kernels: B1 for the sun shadow map (or the
+window after the tonemap.  textureStreaming packs the scene with fallback
+textures and post_frame latches the decoded images (worker threads, the
+native texture codec for `.gtpx` sidecars) into the bundle rows B3 reads,
+under textureBudgetMB.  Kernels: B1 for the sun shadow map (or the
 cascades), the clustered light shadow atlas and the culled main view,
 B2 + B3 for the surface, B3 + B4 for lighting (B4 takes the SSAO plane),
 B3T for the VSM sun term.  Config
@@ -50,17 +53,24 @@ Run:
 
 from __future__ import annotations
 
+import glob
+import importlib
 import json
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.stats import TimestampIntervalStats
+from ..filesystem import Filesystem
+from ..graph.debug import execute_debug
 from ..graph.render_graph import (
     AttachmentInfo, BufferInfo, Queue, RenderGraph, SizeClass,
 )
+from ..kernels import build as K
 from ..math.frustum import Frustum
 from ..math.muglm import (
     look_at_matrix, perspective, quat_from_axis_angle, quat_normalize,
@@ -125,6 +135,7 @@ from ..ui.flat_renderer import composite_overlay
 from ..ui.widgets import Label, UIManager, Window
 from ..utils.image_io import save_png
 from ..utils.logging import LOGI, LOGW
+from .application import Application
 from .headless import headless_main
 
 _MAPPING = {
@@ -252,12 +263,12 @@ class ViewerConfig:
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for knob values outside the port so
-        far (texture streaming, the untiled environment, the half-res
-        specular environment, the bin-plan cache and the non-kernel
-        routes); every other knob of the JAX viewer renders."""
+        far (the untiled environment, the half-res specular environment,
+        the bin-plan cache and the non-kernel routes); every other knob of
+        the JAX viewer renders."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1, 2, 4, 8),
-            "texture_streaming": (False,), "env_tile_sampler": (True,),
+            "env_tile_sampler": (True,),
             "env_specular_half_res": (False,),
             "mesh_encoding": ("classic", "meshlet"),
             "post_aa": _POST_AA,
@@ -294,7 +305,7 @@ def _add_child_node(info: SceneInfo, node: NodeData) -> int:
     return idx
 
 
-class SceneViewerApplication:
+class SceneViewerApplication(Application):
     CLUSTER_Z_SLICES = 32
     CLUSTER_TILE = 64
     LIGHT_CAPACITY = 32
@@ -307,6 +318,8 @@ class SceneViewerApplication:
                             help="glTF/GLB scene or .scene composition")
         parser.add_argument("--config", type=str, default=None,
                             help="config.json path (reference schema)")
+        parser.add_argument("--quirks", type=str, default=None,
+                            help="quirks.json (accepted; knobs logged)")
         parser.add_argument("--camera-index", type=int, default=-1,
                             dest="camera_index",
                             help="the scene camera to render through "
@@ -318,15 +331,26 @@ class SceneViewerApplication:
 
     def __init__(self, args=None, device="cuda"):
         """args: namespace with `config` (path or None), `bench_scene`,
-        `scene` (a .gltf, .glb or .scene path, or None) and
-        `camera_index` (-1 frames the scene bounds); device: 'cuda'
-        (raises without a card) or 'cpu'.  A camera index past the
-        scene's cameras raises ValueError."""
-        self.device = resolve_device(device)
+        `scene` (a .gltf, .glb or .scene path, or None), `camera_index`
+        (-1 frames the scene bounds) and optionally `quirks` (a
+        quirks.json path); device: 'cuda' (raises without a card) or
+        'cpu'.  A camera index past the scene's cameras raises
+        ValueError.  GRANITE_DEBUG_GRAPH set routes every frame through
+        graph/debug.execute_debug; GRANITE_WATCH_KERNELS set watches the
+        kernel sources (post_frame)."""
+        super().__init__(device)
         self.config = (ViewerConfig.from_json(args.config)
                        if args is not None and getattr(args, "config", None)
                        else ViewerConfig())
         self.config.check_slice()
+        quirks = getattr(args, "quirks", None) if args is not None else None
+        if quirks:
+            # quirks.json (scene_viewer_application.cpp:130): workaround
+            # toggles for Vulkan driver bugs; none applies to the port.
+            with open(quirks) as f:
+                for k, v in json.load(f).items():
+                    LOGW("quirk '%s'=%s has no counterpart in the port; "
+                         "ignored", k, v)
         scene_path = getattr(args, "scene", None) if args is not None \
             else None
         # A scene file's terrain settings (none: the defaults).
@@ -372,7 +396,14 @@ class SceneViewerApplication:
                     self.meshlet_meshes += 1
             LOGI("meshEncoding=meshlet: %d/%d meshes re-encoded",
                  self.meshlet_meshes, len(info.meshes))
-        self.packed: PackedScene = pack_scene(info, device=self.device)
+        # textureBudgetMB bounds the decoded bytes of the streamed images
+        # (AssetManager::set_asset_budget); 0 is no bound.
+        budget = int(self.config.texture_budget_mb * 2**20) \
+            if self.config.texture_budget_mb > 0 else None
+        self.packed: PackedScene = pack_scene(
+            info, device=self.device,
+            texture_streaming=self.config.texture_streaming,
+            texture_budget=budget)
         # The skinned meshes cast their sun shadows per frame: B1 sets up
         # and bins their triangles only.
         dynamic = (self.scene.r_flags & RENDERABLE_DYNAMIC) != 0
@@ -407,7 +438,6 @@ class SceneViewerApplication:
         self.context = RenderContext()
         self.graph = RenderGraph()
         self._history = None
-        self.width = self.height = 0
         self._jitter = None
         self._mv_prev = None     # last frame's node world matrices
         self._sun_dir = np.array([0.35, 0.9, 0.25], np.float32)
@@ -439,6 +469,30 @@ class SceneViewerApplication:
         # showUi: the stats window, built at the first frame
         self.ui_manager = None
         self._ui_stats_label = None
+        # Hot reload (shader_manager's inotify watch): a changed
+        # config.json is read again and the graph re-baked at post_frame.
+        # The path is made absolute: the file protocol's root is "/".
+        self._fs = Filesystem()
+        self._reload_config = False
+        self._config_path = getattr(args, "config", None) \
+            if args is not None else None
+        if self._config_path:
+            self._config_path = os.path.abspath(self._config_path)
+            self._fs.install_notification(self._config_path,
+                                          self._config_changed)
+        # GRANITE_DEBUG_GRAPH: breadcrumbs and the NaN/Inf scan, pass by
+        # pass; the per-pass ms accumulate in pass_stats.
+        self._debug_graph = bool(os.environ.get("GRANITE_DEBUG_GRAPH"))
+        self.pass_stats = TimestampIntervalStats()
+        self.last_breadcrumbs = None
+        # GRANITE_WATCH_KERNELS: [path, mtime] of the op and renderer
+        # modules and the CUDA sources (opt-in: runs stay deterministic).
+        self._kernel_watch = []
+        if os.environ.get("GRANITE_WATCH_KERNELS"):
+            pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            for pat in ("ops/*.py", "renderer/*.py", "csrc/*.cu*"):
+                for f in sorted(glob.glob(os.path.join(pkg, pat))):
+                    self._kernel_watch.append([f, os.path.getmtime(f)])
 
     # -- scene ----------------------------------------------------------------
     def _add_ocean(self, info: SceneInfo) -> None:
@@ -1665,6 +1719,10 @@ class SceneViewerApplication:
             params = cached[1]
         else:
             params = self.build_frame_params(frame_time, elapsed_time)
+        if self._debug_graph:
+            out, self._history, self.last_breadcrumbs = execute_debug(
+                self.graph, params, self._history, stats=self.pass_stats)
+            return out
         out, self._history = self.graph.execute(params, self._history)
         return out
 
@@ -1680,7 +1738,14 @@ class SceneViewerApplication:
         jitter) from the host-side jitter sequence.  A time-varying frame
         (animations, an ocean or the UI) poses and rebuilds every frame's
         params at t0 + i * frame_time, the orbit included, as the
-        reference's time-varying chain does."""
+        reference's time-varying chain does.  Under GRANITE_DEBUG_GRAPH
+        every frame goes through render_frame at t0 + i * frame_time, as
+        in the reference (the debug route is per frame by nature)."""
+        if self._debug_graph:
+            out = None
+            for i in range(n):
+                out = self.render_frame(frame_time, t0 + i * frame_time)
+            return out
         if self.animation_system.states or self.ocean is not None \
                 or self.config.show_ui:
             return self._chain_time_varying(frame_time, t0, n, camera_orbit)
@@ -1769,6 +1834,53 @@ class SceneViewerApplication:
             ctx.set_camera(self.camera)
             banks.append(self._view_params(ctx, params.get("lights")))
         return banks
+
+    def _config_changed(self, info) -> None:
+        # A deleted config keeps the knobs in force (nothing to re-read).
+        if info.type != "deleted":
+            self._reload_config = True
+
+    def post_frame(self) -> None:
+        """Application::poll analogue, after each frame: the streaming
+        latch (AssetManager::iterate + ResourceManager::latch_handles: the
+        rows of scene.bundles rewritten in place), file notifications,
+        the config.json hot reload, and under GRANITE_WATCH_KERNELS the
+        reload of changed op / renderer modules (importlib) and CUDA
+        sources (the loaded kernel library is dropped, so the next launch
+        rebuilds it under its new hash); either re-bakes the graph."""
+        if self.packed.streamer is not None:
+            self.packed.streamer.latch()
+        self._fs.poll_notifications()
+        changed = []
+        for ent in self._kernel_watch:
+            try:
+                m = os.path.getmtime(ent[0])
+            except OSError:
+                continue
+            if m != ent[1]:
+                ent[1] = m
+                changed.append(ent[0])
+        if changed:
+            root = os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))
+            for f in changed:
+                if f.endswith(".py"):
+                    name = os.path.relpath(f, root)[:-3].replace(os.sep, ".")
+                    mod = sys.modules.get(name)
+                    if mod is not None:
+                        importlib.reload(mod)
+                        LOGI("kernel module reloaded: %s", name)
+                else:
+                    K.drop_library()
+                    LOGI("kernel source changed: %s", f)
+            LOGI("kernel sources changed; re-baking render graph")
+            self.swapchain_updated(self.width, self.height)
+        if self._reload_config and self._config_path:
+            self._reload_config = False
+            LOGI("config.json changed; re-baking render graph")
+            self.config = ViewerConfig.from_json(self._config_path)
+            self.config.check_slice()
+            self.swapchain_updated(self.width, self.height)
 
     def frame_stats(self) -> dict:
         """Raster counters of the last G-buffer pass, static shadow map

@@ -11,6 +11,7 @@ from ..ops.srgb import srgb_u8_to_linear_np
 
 WHITE_TEXTURE = 0
 FLAT_NORMAL_TEXTURE = 1
+NUM_BUILTIN_TEXTURES = 2
 
 
 class TextureArrayBuilder:

@@ -272,27 +272,32 @@ class RenderGraph:
             out[name] = torch.zeros(shape, dtype=info.dtype, device=device)
         return out
 
+    def run_pass(self, pname: str, pool: dict, history, params) -> dict:
+        """Run pass `pname`, cast its outputs to their targets' types and
+        add them to `pool`; -> those outputs."""
+        rp = self._passes[pname]
+        # A named range per pass: torch.profiler attributes host and
+        # device time to it (a no-op when no profiler is active).
+        with torch.profiler.record_function(f"pass:{pname}"):
+            outs = rp._execute(PassContext(self, rp, pool, history, params))
+        if set(outs) != set(rp.outputs):
+            raise RenderGraphError(
+                f"pass '{pname}' returned {sorted(outs)}, declared "
+                f"{sorted(rp.outputs)}")
+        for name, val in outs.items():
+            want = self._resources[name].info.dtype
+            if val.dtype != want:
+                outs[name] = val.to(want)
+        pool.update(outs)
+        return outs
+
     def execute(self, params, history):
         """Run one baked frame eagerly -> (backbuffer, new_history)."""
         if not self._order:
             raise RenderGraphError("graph not baked")
         pool: dict[str, Any] = {}
         for pname in self._order:
-            rp = self._passes[pname]
-            # A named range per pass: torch.profiler attributes host and
-            # device time to it (a no-op when no profiler is active).
-            with torch.profiler.record_function(f"pass:{pname}"):
-                outs = rp._execute(PassContext(self, rp, pool, history,
-                                               params))
-            if set(outs) != set(rp.outputs):
-                raise RenderGraphError(
-                    f"pass '{pname}' returned {sorted(outs)}, declared "
-                    f"{sorted(rp.outputs)}")
-            for name, val in outs.items():
-                want = self._resources[name].info.dtype
-                if val.dtype != want:
-                    val = val.to(want)
-                pool[name] = val
+            self.run_pass(pname, pool, history, params)
         new_history = {n: pool[n] for n in self._history_resources}
         return pool[self._backbuffer], new_history
 

@@ -166,6 +166,14 @@ def library() -> ctypes.CDLL:
     return _library
 
 
+def drop_library() -> None:
+    """Forget the loaded library: the next launch builds (or finds) the
+    library of the sources as they are now, under its own hash.  The
+    viewer's GRANITE_WATCH_KERNELS calls this when a csrc file changes."""
+    global _library
+    _library = None
+
+
 def launch(kernel_id: str, entry: str, *args) -> None:
     """Call a kernel's C entry point on the current stream; raise on a
     non-zero cudaError.  Counts the launch under `kernel_id`."""

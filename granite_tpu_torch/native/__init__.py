@@ -1,9 +1,10 @@
-"""ctypes bindings for the port's native MLT2 meshlet codec
-(meshlet2.cpp, a copy of the MLT2 half of
-granite_tpu/native/granite_native.cpp).
+"""Native host libraries of the port, built from source with g++ at first
+use and bound with ctypes: the MLT2 meshlet codec here (meshlet2.cpp, a
+copy of the MLT2 half of granite_tpu/native/granite_native.cpp) and the
+texture codec in native/texture.py (texture_codec.cpp, its texture half).
 
-Built from source with g++ -O2 -shared -fPIC -std=c++17 at first use into
-the repository's gitignored build/granite_tpu_torch/, under a name that
+Each library is built with g++ -O2 -shared -fPIC -std=c++17 into the
+repository's gitignored build/granite_tpu_torch/, under a name that
 carries a hash of the source and flags (an edited source is rebuilt, a
 stale binary never reused).  A failed build raises.
 """
@@ -21,32 +22,42 @@ import numpy as np
 from ..kernels.build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().with_name("meshlet2.cpp")
+GXX = "g++"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path, build_dir: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libgranite_meshlet2_{digest.hexdigest()[:16]}.so"
+    return build_dir / f"libgranite_{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile meshlet2.cpp (no-op when the library for this exact source
-    exists).  Raises RuntimeError with the compiler's output on failure."""
-    out = library_path()
+def compile_library(source: Path, build_dir: Path) -> Path:
+    """Compile `source` into build_dir (no-op when the library for this
+    exact source exists).  Raises RuntimeError with the compiler's output
+    when the compiler fails or cannot be run."""
+    out = library_path(source, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [GXX, *GXX_FLAGS, str(source), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as err:
+        raise RuntimeError(f"g++ failed: {' '.join(cmd)}: {err}") from err
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)      # atomic against concurrent builders
     return out
+
+
+def build() -> Path:
+    """Compile meshlet2.cpp (see compile_library)."""
+    return compile_library(SOURCE, BUILD_DIR)
 
 
 def get_lib() -> ctypes.CDLL:

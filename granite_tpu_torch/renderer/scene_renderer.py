@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..assets.texture_array import (
-    FLAT_NORMAL_TEXTURE, TextureArrayBuilder, WHITE_TEXTURE,
+    FLAT_NORMAL_TEXTURE, NUM_BUILTIN_TEXTURES, TextureArrayBuilder,
+    WHITE_TEXTURE,
 )
 from ..ops import raster as R
 from ..ops.hdr import resize_bilinear, uv_grid
@@ -95,6 +96,8 @@ class PackedScene:
     has_normal_maps: bool = True
     has_mr_textures: bool = True
     has_emissive: bool = True
+    # texture streaming: the TextureStreamer that owns `bundles`
+    streamer: object = None
 
     DEVICE_FIELDS = ("positions", "normals", "uvs", "tangents", "v_node",
                      "indices", "tri_material", "tri_object",
@@ -128,6 +131,13 @@ def pack_material_channels(images_rgba: list) -> np.ndarray:
                            normal[..., 0:3], emissive[..., 0:3]], axis=-1)
 
 
+def build_bundle_strip(images_rgba: list) -> np.ndarray:
+    """4 linear material images [base, mr, normal, emissive] -> one
+    60-channel f16 LOD strip (the 12 channels quad-packed, with the
+    parent tap)."""
+    return build_packed_lod_strip_np(pack_material_channels(images_rgba))
+
+
 BLOCK_PLAIN, BLOCK_MORPH, BLOCK_MORPH_SKIN, BLOCK_SKIN = range(4)
 
 
@@ -150,13 +160,24 @@ def mesh_instances(info: SceneInfo) -> list:
     return out
 
 
-def pack_scene(info: SceneInfo, texture_size: int = 512,
-               device="cpu") -> PackedScene:
+def pack_scene(info: SceneInfo, texture_size: int = 512, device="cpu",
+               texture_streaming: bool = False,
+               texture_budget=None) -> PackedScene:
     """Flatten SceneInfo into global buffers on `device` (instances in
-    the reference's block order: plain | morph | morph+skin | skin)."""
-    tb = TextureArrayBuilder(texture_size)
-    img_to_tex = {i: tb.add_image(img, info.image_srgb[i])
-                  for i, img in enumerate(info.images)}
+    the reference's block order: plain | morph | morph+skin | skin).
+
+    texture_streaming: the images are not decoded here; their texture ids
+    are assigned in order, and a TextureStreamer (assets/streaming.py)
+    owns `bundles`: all fallbacks at first, rows latched in as images
+    become resident under texture_budget bytes (None: no limit)."""
+    tb = None
+    if texture_streaming:
+        img_to_tex = {i: NUM_BUILTIN_TEXTURES + i
+                      for i in range(len(info.images))}
+    else:
+        tb = TextureArrayBuilder(texture_size)
+        img_to_tex = {i: tb.add_image(img, info.image_srgb[i])
+                      for i, img in enumerate(info.images)}
 
     def tex_of(img_idx, fallback):
         return img_to_tex.get(img_idx, fallback) if img_idx is not None \
@@ -185,8 +206,17 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
         mat_alpha[i] = [float(m.alpha_mode), m.alpha_cutoff]
         mat_two_sided[i] = int(m.two_sided)
     mat_bundle, bundle_keys = material_bundle_plan(mat_tex)
-    bundles = np.stack([build_packed_lod_strip_np(pack_material_channels(
-        [tb._images[t] for t in key])) for key in bundle_keys])
+    streamer = None
+    if texture_streaming:
+        from ..assets.streaming import TextureStreamer
+        streamer = TextureStreamer(
+            info, bundle_keys, {t: i for i, t in img_to_tex.items()},
+            texture_size, budget_bytes=texture_budget, device=device)
+        bundles = streamer.initial_bundles()
+    else:
+        bundles = torch.as_tensor(np.stack([build_bundle_strip(
+            [tb._images[t] for t in key]) for key in bundle_keys]),
+            device=device)
 
     skin_offsets = []
     off = 0
@@ -292,7 +322,7 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
         mat_bundle=dev(mat_bundle, np.int32),
         mat_alpha=dev(mat_alpha, np.float32),
         mat_two_sided=dev(mat_two_sided, np.int32),
-        bundles=torch.as_tensor(bundles, device=device),
+        bundles=bundles, streamer=streamer,
         obj_node=np.asarray(obj_node, np.int32),
         obj_aabb_min=np.asarray(obj_min, np.float32),
         obj_aabb_max=np.asarray(obj_max, np.float32),
@@ -314,9 +344,10 @@ def pack_scene(info: SceneInfo, texture_size: int = 512,
         has_emissive=any(m.emissive_image is not None
                          or np.any(m.emissive_factor)
                          for m in info.materials))
-    LOGI("PackedScene: %d verts, %d tris, %d objects, %d bundles on %s",
+    LOGI("PackedScene: %d verts, %d tris, %d objects, %d bundles%s on %s",
          ps.positions.shape[0], ps.indices.shape[0], ps.num_objects,
-         len(bundle_keys), device)
+         len(bundle_keys), " (streaming)" if streamer is not None else "",
+         device)
     return ps
 
 

@@ -137,7 +137,7 @@ class _Recorder:
         self.calls.append(("probe", path, face_size, equirect_height))
 
     def post_frame(self):
-        pass
+        self.calls.append(("post_frame",))
 
     def teardown(self):
         pass
@@ -158,8 +158,10 @@ def _args(**kw):
 def test_runner_calls_match_jax(kw):
     """The port's runner renders with the JAX runner's (frame time,
     elapsed time) sequence: warm-up frames at elapsed 0, timed frame i at
-    (i + 1) x step under --time-step; --chain and --capture-probe call
-    the app as the JAX runner does."""
+    (i + 1) x step under --time-step, each timed frame followed by
+    post_frame (texture streaming's latch) and the warm-up frames and the
+    chain by none; --chain and --capture-probe call the app as the JAX
+    runner does."""
     got, want = _Recorder(), _Recorder()
     assert run_headless(got, _args(**kw)) == 0
     assert jax_run_headless(want, _args(**kw)) == 0

@@ -39,8 +39,9 @@ def test_port_imports_without_jax():
     assert int(lines["MODULES"]) >= 20
     # the ocean, terrain, decal and meshlet modules, the stat sink (the
     # native codec's loader included), the occlusion and volume modules,
-    # the compile probe, the UI and event copies and the triangle demo
-    # are among them
+    # the compile probe, the UI and event copies, the triangle demo and
+    # texture streaming's modules (the OS-service copies, the texture
+    # codec, the streamer, the debug graph) are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
         "renderer.ground", "renderer.ocean", "scene.gltf",
@@ -51,7 +52,10 @@ def test_port_imports_without_jax():
         "renderer.volumetric_diffuse", "tools",
         "tools.compile_parallel_probe", "ui", "ui.flat_renderer",
         "ui.font", "ui.sprite", "ui.widgets", "event", "event.manager",
-        "app.application", "app.triangle_demo")} \
+        "app.application", "app.triangle_demo", "utils.environment",
+        "utils.timeline_trace", "threading_", "threading_.thread_group",
+        "filesystem", "filesystem.vfs", "filesystem.asset_manager",
+        "native.texture", "assets.streaming", "graph.debug")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
@@ -84,7 +88,7 @@ def _smoke_imports() -> set:
 
 def test_chip_smoke_imports_without_jax():
     names = _smoke_imports()
-    assert {"gltf_fixtures", "golden_utils"} <= names
+    assert {"gltf_fixtures", "golden_utils", "streaming_fixtures"} <= names
     assert not any(n.split(".")[0] in ("jax", "granite_tpu") for n in names)
     proc = subprocess.run(
         [sys.executable, "-c", SMOKE_SRC, "chip_smoke", *sorted(names)],

@@ -204,7 +204,9 @@ def test_hdr_chain_ops_match():
 def test_unsupported_knob_raises():
     with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
-    for knob in ({"textureStreaming": True}, {"envTileSampler": False}):
+    # (textureStreaming renders: tests/test_torch_streaming.py)
+    for knob in ({"envSpecularHalfRes": True}, {"envTileSampler": False},
+                 {"binPlanCache": "true"}):
         with pytest.raises(NotImplementedError):
             _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
 
