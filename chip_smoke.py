@@ -167,6 +167,20 @@
                     residency must render bit-equal to it with
                     textureStreaming false (same bundle bytes, same
                     kernels).
+     video_player:  `python -m granite_tpu_torch.app.video_player`'s
+                    entry point (main) on the card at 1920x1080 with
+                    --video-size 1024 over a PNG sequence of VIDEO_COUNT
+                    seeded 1920x1080 frames written at run time (blocks of
+                    noise, frame i bright in channel i % 3), 2 warm-up
+                    and 16 timed frames at --time-step 0.0333 with --stat,
+                    GRANITE_VULKAN_SWAPCHAIN_IMAGES 2: exit 0, the image
+                    gate, the quad over > 15% of the frame, each frame's
+                    quad dominated by its video frame's channel, 18
+                    frames decoded, every slot the ring hands back with
+                    its event complete (query()), no launch of B1-B5.
+                    ms/frame from CUDA events around each frame and from
+                    the stat JSON (host clock), decode host ms a frame
+                    (VideoSource.read_frame), then 2 traced frames.
    deferred_post and fsr2 are TAA paths: their chained camera stands
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
@@ -193,6 +207,8 @@
    triangle demo (BASELINE config 1) through `python -m
    granite_tpu_torch.app.triangle_demo`'s entry point at 1280x720, 4
    frames: image gate, and its PNG against the same frame on the CPU.
+   Then the video player at VIDEO_SMALL (480x270, --video-size 64) over
+   the same frames, card against CPU.
 Each phase's wall seconds are printed when it ends.
 Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
@@ -312,6 +328,14 @@ CROSS_DEVICE["deferred_hdr msaa 4 + renderTargetFp16"] = (
     None)
 CROSS_DEVICE["deferred_taa_fog showUi"] = (
     "deferred_taa_fog", False, False, {"showUi": True}, None)
+# The video player: VIDEO_COUNT seeded frames of VIDEO_BLOCK-px blocks
+# (frame i bright in channel i % 3), rendered at 1920x1080 into a
+# VIDEO_SIZE^2 texture; the frame ring VIDEO_RING deep; the quad covers
+# more than VIDEO_MIN_COVER of the frame; the card-vs-CPU check's size.
+VIDEO_COUNT, VIDEO_BLOCK, VIDEO_SEED, VIDEO_SIZE = 24, 40, 31, 1024
+VIDEO_WARMUP, VIDEO_FRAMES, VIDEO_STEP, VIDEO_RING = 2, 16, 0.0333, 2
+VIDEO_MIN_COVER = 0.15
+VIDEO_SMALL = (480, 270, 64)
 # The triangle demo (BASELINE config 1) through its entry point.
 TRIANGLE_W, TRIANGLE_H, TRIANGLE_FRAMES = 1280, 720, 4
 # Decals of the decals_meshlet path: the viewer's table capacity, each
@@ -1525,6 +1549,172 @@ def triangle_demo() -> dict:
     return dict(psnr=p, wall_s=wall)
 
 
+def write_video_frames(directory: str) -> None:
+    """VIDEO_COUNT 1920x1080 PNGs from VIDEO_SEED: blocks of noise in
+    [0, 64), frame i's channel i % 3 in [170, 256)."""
+    import numpy as np
+    from granite_tpu_torch.utils.image_io import save_png
+    rng = np.random.default_rng(VIDEO_SEED)
+    rows, cols = HEIGHT // VIDEO_BLOCK, WIDTH // VIDEO_BLOCK
+    for i in range(VIDEO_COUNT):
+        blocks = rng.integers(0, 64, (rows, cols, 4), dtype=np.uint8)
+        blocks[..., i % 3] = rng.integers(170, 256, (rows, cols))
+        blocks[..., 3] = 255
+        img = blocks.repeat(VIDEO_BLOCK, 0).repeat(VIDEO_BLOCK, 1)
+        save_png(os.path.join(directory, f"frame_{i:05d}.png"), img)
+
+
+def video_frames(app, n: int):
+    """n more frames of the video player (the traced frames)."""
+    out = None
+    for i in range(n):
+        out = app.render_frame(VIDEO_STEP, (i + 1) * VIDEO_STEP)
+    return out
+
+
+def video_player_path(seq: str) -> dict:
+    """The video player through its entry point on the card (the path in
+    the docstring); -> its launches, counted from 0."""
+    import torch
+    from granite_tpu_torch.app import video_player as VP
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.utils.image_io import load_image
+    made, frames, ring, decode = [], [], [], []
+    base = VP.VideoPlayerApplication
+
+    class Checked(base):
+        """The player, recording itself, each frame's output between two
+        CUDA events, each decode's host seconds and, at each move of the
+        frame ring, the events of the slot it hands back."""
+
+        def __init__(self, args, device="cuda"):
+            super().__init__(args, device=device)
+            made.append(self)
+            read, hub = self.source.read_frame, self.hub
+            move = hub.next_frame_context
+
+            def timed_read():
+                t0 = time.perf_counter()
+                frame = read()
+                decode.append(time.perf_counter() - t0)
+                return frame
+
+            def next_frame_context():
+                ahead = hub._frames[(hub._frame_index + 1)
+                                    % len(hub._frames)]
+                events = list(ahead.in_flight)
+                slot = move()
+                ring.append((len(events), all(e.query() for e in events)))
+                return slot
+
+            self.source.read_frame = timed_read
+            hub.next_frame_context = next_frame_context
+
+        def render_frame(self, frame_time, elapsed_time):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().render_frame(frame_time, elapsed_time)
+            end.record()
+            frames.append((start, end, out))
+            return out
+
+    png = os.path.join(seq, os.pardir, "video.png")
+    stat = os.path.join(seq, os.pardir, "video.json")
+    env = os.environ.get("GRANITE_VULKAN_SWAPCHAIN_IMAGES")
+    os.environ["GRANITE_VULKAN_SWAPCHAIN_IMAGES"] = str(VIDEO_RING)
+    # main() builds its app through the module's class name
+    VP.VideoPlayerApplication = Checked
+    try:
+        K.reset_launch_counts()
+        t = time.monotonic()
+        rc = VP.main(["--video", seq, "--video-size", str(VIDEO_SIZE),
+                      "--device", "cuda", "--width", str(WIDTH),
+                      "--height", str(HEIGHT), "--frames",
+                      str(VIDEO_FRAMES), "--warmup-frames",
+                      str(VIDEO_WARMUP), "--time-step", str(VIDEO_STEP),
+                      "--png-path", png, "--stat", stat])
+        wall = time.monotonic() - t
+        launches = dict(K.LAUNCHES)
+    finally:
+        VP.VideoPlayerApplication = base
+        if env is None:
+            del os.environ["GRANITE_VULKAN_SWAPCHAIN_IMAGES"]
+        else:
+            os.environ["GRANITE_VULKAN_SWAPCHAIN_IMAGES"] = env
+    check(rc == 0, f"the video player exited {rc}")
+    app = made[0]
+    torch.cuda.synchronize()
+    rendered = VIDEO_WARMUP + VIDEO_FRAMES
+    timed = frames[VIDEO_WARMUP:rendered]
+    ms = timed[0][0].elapsed_time(timed[-1][1]) / VIDEO_FRAMES
+    with open(stat) as f:
+        host_ms = json.load(f)["averageFrameTimeUs"] / 1e3
+    shares, covers = [], []
+    for k, (_s, _e, out) in enumerate(frames[:rendered]):
+        rgb = out[..., :3]
+        bright = rgb.amax(-1) > 100
+        covers.append(float(bright.float().mean()))
+        dom = rgb[bright].argmax(-1)
+        shares.append(float((dom == k % 3).float().mean()))
+    img = load_image(png)
+    ok, means = image_gate(img)
+    waited = [n for n, _ in ring]
+    decoded = app._frames_decoded
+    busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES, video_frames)
+    log(f"video_player {WIDTH}x{HEIGHT}, texture {VIDEO_SIZE}^2, "
+        f"{VIDEO_FRAMES} timed frames: {ms:.3f} ms/frame (CUDA events), "
+        f"{host_ms:.3f} ms/frame (host clock, stat JSON); decode "
+        f"{1e3 * sum(decode[:rendered]) / rendered:.3f} host ms a frame; "
+        f"exit {rc}, {wall:.2f} s wall; device busy {busy_ms:.3f} ms/frame"
+        f" over {TRACED_FRAMES} traced frames, idle share "
+        f"{1.0 - busy_ms / ms:.3f}")
+    log(f"video_player image gate ok={ok} rgb means {means}; quad cover "
+        f"{min(covers):.3f}-{max(covers):.3f}; dominant channel shares "
+        f"{[round(x, 3) for x in shares]}; frames decoded "
+        f"{decoded}; ring events waited a move {waited}, all "
+        f"complete {all(c for _, c in ring)}; device ms a frame by range "
+        f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }; "
+        f"launches {launches}")
+    check(ok, f"video player image gate failed: means {means}")
+    check(min(covers) > VIDEO_MIN_COVER, f"the quad covers {covers}")
+    check(min(shares) > 0.95, f"dominant channel shares {shares}")
+    check(decoded == rendered,
+          f"{decoded} frames decoded, {rendered} rendered")
+    check(len(ring) == VIDEO_FRAMES and all(c for _, c in ring)
+          and waited == [0] * (VIDEO_RING - 1)
+          + [1] * (VIDEO_FRAMES - VIDEO_RING + 1),
+          f"frame ring: events waited {waited}, complete {ring}")
+    check(not any(launches.values()),
+          f"the video player launched kernels: {launches}")
+    del app, made, frames
+    torch.cuda.empty_cache()
+    return launches
+
+
+def video_cross_device(seq: str) -> None:
+    """The video player at VIDEO_SMALL on the card and on the CPU over
+    the same frames, 3 frames each: luma PSNR >= 48 dB a frame."""
+    from golden_utils import psnr
+    from granite_tpu_torch.app.video_player import VideoPlayerApplication
+    width, height, size = VIDEO_SMALL
+    t = time.monotonic()
+    imgs = {}
+    for device in ("cuda", "cpu"):
+        app = VideoPlayerApplication(types.SimpleNamespace(
+            video=seq, video_size=size), device=device)
+        app.swapchain_updated(width, height)
+        imgs[device] = [app.render_frame(VIDEO_STEP, i * VIDEO_STEP)
+                        .cpu().numpy() for i in range(3)]
+        app.teardown()
+    p = [float(psnr(a, b)) for a, b in zip(imgs["cuda"], imgs["cpu"])]
+    log(f"cross-device video_player {width}x{height} texture {size}^2: "
+        f"cuda vs cpu luma PSNR {[round(x, 2) for x in p]} dB "
+        f"({time.monotonic() - t:.1f} s)")
+    check(min(p) >= PSNR_GATE_DB,
+          f"cross-device video player PSNR {p} < {PSNR_GATE_DB}")
+
+
 def chained_frames(app, n: int):
     """n chained frames, the camera yawed ORBIT a frame (the bench paths'
     loop).  -> the last backbuffer, on the device."""
@@ -2036,9 +2226,19 @@ def main() -> int:
         by_path[name] = main_path(name, results)
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
+    video = tempfile.TemporaryDirectory()
+    seq = os.path.join(video.name, "frames")
+    os.makedirs(seq)
+    write_video_frames(seq)
+    log(f"video frames written in {time.monotonic() - t:.1f} s")
+    by_path["video_player"] = video_player_path(seq)
+    log(f"phase 3 path video_player took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     cross_device()
     streaming_cross_device()
     triangle = triangle_demo()
+    video_cross_device(seq)
+    video.cleanup()
     log(f"phase 4 took {time.monotonic() - t:.1f} s; the run "
         f"{time.monotonic() - t_start:.1f} s")
     kernels = []

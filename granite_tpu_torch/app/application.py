@@ -4,22 +4,29 @@ application/application.hpp:31).
 The headless runner (app/headless.py) drives an application through
 swapchain_updated and render_frame; a frame is an (H, W, 4) uint8 tensor
 on the application's device, which a sink (PNG writer, video encoder)
-consumes.  The scene viewer keeps its own base; the triangle demo
-(BASELINE config 1) derives from this one.
+consumes.  The scene viewer, the triangle demo (BASELINE config 1) and
+the video player derive from this one.
+
+`device` stays the torch.device every module reads `.type` from; the
+frame ring and the named-interval stats (core/device.Device, the JAX
+application's `device`) are the separate `hub`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import Device
 from ..event.manager import EventManager
 
 
 class Application:
-    def __init__(self, device="cuda"):
-        """device: 'cuda' (raises without a card) or 'cpu'."""
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", frames_in_flight: int | None = None):
+        """device: 'cuda' (raises without a card) or 'cpu';
+        frames_in_flight: the size of the hub's frame ring (None:
+        GRANITE_VULKAN_SWAPCHAIN_IMAGES, else 2)."""
+        self.hub = Device(device, frames_in_flight)
+        self.device = self.hub.backend.default_device
         self.event_manager = EventManager.get()
         self.width = 0
         self.height = 0
@@ -42,5 +49,5 @@ class Application:
         """Asset-streaming hook (Application::post_frame)."""
 
     def teardown(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every frame in flight."""
+        self.hub.wait_idle()

@@ -9,19 +9,26 @@ elapsed time 0, then the timed frames at FrameTimer's frame and elapsed
 times ((i + 1) x step under --time-step, the wall clock without it), or
 with --chain one render_frames_chained(step, 0, frames) to warm up and
 one render_frames_chained(step, step, frames) timed.  The timed frames
-run back to back with no host readback until the end; each non-chained
-one is followed by app.post_frame() (texture streaming's latch, file
-notifications, hot reload), as in the JAX runner.  The chained path calls
-no post_frame in either runner, so a streamed scene under --chain keeps
-its fallback textures.  The stat JSON
-keeps the JAX engine's schema (core/stats.StatSink): averageFrameTimeUs
-on the host clock around work that ends in a device synchronize; gpu,
+run back to back with no host readback until the end; after each
+non-chained one the runner tracks its output in the app's frame ring
+(`app.hub.frame().track(out)`), moves the ring on
+(`app.hub.next_frame_context()`, which waits for the frame
+GRANITE_VULKAN_SWAPCHAIN_IMAGES back, so the host queues at most that
+many frames) and calls app.post_frame() (texture streaming's latch, file
+notifications, hot reload), as the JAX runner does.  The last call is
+app.teardown() (not after a refused reference image), as in JAX.  The
+chained path calls no post_frame in either runner, so a streamed scene
+under --chain keeps its fallback textures.  The stat JSON keeps the JAX
+engine's schema (core/stats.StatSink): averageFrameTimeUs on the host
+clock around work that ends in a device synchronize; gpu,
 the card's name or "cpu"; performanceCounters compileTimeMs (warm-up
 frames, the kernel build included), wallTimePerFrameUs and, with
 --png-reference-path, the PSNR counters of utils/image_compare;
 passTimesUs, each `pass:<name>` range's device time a frame (CPU time on
-the CPU) when --profile traces the frames, else {} (GRANITE_DEBUG_GRAPH's
-host-clock per-pass ms stay in the app's breadcrumbs and pass_stats).
+the CPU) when --profile traces the frames, else {}.  Here the port
+parts from the JAX runner, which merges the hub's host-clock intervals
+(GRANITE_DEBUG_GRAPH's per-pass ms) into passTimesUs: they stay in
+`app.hub.stats` and the app's breadcrumbs.
 A reference image of another size exits 1; --chain with --video-path is
 refused (exit 2).
 """
@@ -114,8 +121,7 @@ def run_headless(app, args: argparse.Namespace) -> int:
         return 2
     frames = max(args.frames, 1)
     app.swapchain_updated(args.width, args.height)
-    device_name = (torch.cuda.get_device_name(app.device)
-                   if app.device.type == "cuda" else "cpu")
+    device_name = app.hub.backend.gpu_name()
     stats = StatSink(device_name)
     timer = FrameTimer()
     if getattr(args, "capture_probe", None):
@@ -147,6 +153,8 @@ def run_headless(app, args: argparse.Namespace) -> int:
             for _ in range(frames):
                 ft = timer.frame(fixed_step=args.time_step)
                 out = app.render_frame(ft, timer.get_elapsed())
+                app.hub.frame().track(out)
+                app.hub.next_frame_context()
                 app.post_frame()
                 if sink is not None:
                     sink.push_frame(out.cpu().numpy())
@@ -183,6 +191,7 @@ def run_headless(app, args: argparse.Namespace) -> int:
         LOGI("Wrote %s", args.stat)
     LOGI("averageFrameTimeUs=%.1f over %d frames on %s",
          stats.average_frame_time_us(), frames, device_name)
+    app.teardown()
     return 0
 
 

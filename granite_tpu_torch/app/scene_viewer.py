@@ -36,12 +36,15 @@ the HDR colour targets float16; showUi composites the host-rendered stats
 window after the tonemap.  textureStreaming packs the scene with fallback
 textures and post_frame latches the decoded images (worker threads, the
 native texture codec for `.gtpx` sidecars) into the bundle rows B3 reads,
-under textureBudgetMB.  Kernels: B1 for the sun shadow map (or the
-cascades), the clustered light shadow atlas and the culled main view,
-B2 + B3 for the surface, B3 + B4 for lighting (B4 takes the SSAO plane),
-B3T for the VSM sun term.  Config
-knobs keep the reference's config.json names; a knob value the port does
-not implement raises NotImplementedError.
+under textureBudgetMB.  The bake takes the shadow-main, gbuffer, lighting
+and forward executors from a RendererSuite (renderer/suite.py), whose
+Config carries PCFKernelWide, directionalLightShadowsVSM,
+forwardDepthPrepass and directionalLightShadowsCascaded.  Kernels: B1 for
+the sun shadow map (or the cascades), the clustered light shadow atlas
+and the culled main view, B2 + B3 for the surface, B3 + B4 for lighting
+(B4 takes the SSAO plane), B3T for the VSM sun term.  Config knobs keep
+the reference's config.json names; a knob value the port does not
+implement raises NotImplementedError.
 
 Run:
   python -m granite_tpu_torch.app.scene_viewer --bench-scene \
@@ -64,7 +67,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.stats import TimestampIntervalStats
 from ..filesystem import Filesystem
 from ..graph.debug import execute_debug
 from ..graph.render_graph import (
@@ -115,6 +117,9 @@ from ..renderer.scene_renderer import (
     rasterize_scene, render_shadow_map, shade_surface_fused,
     surface_attributes, transform_vertices, transparent_composite,
     world_positions,
+)
+from ..renderer.suite import (
+    Config as SuiteConfig, RendererSuite, Type as SuiteType,
 )
 from ..renderer.volumetric_diffuse import (
     FACE_DIRS as PROBE_FACE_DIRS, FACE_DV as PROBE_FACE_DV, bake_volume,
@@ -336,8 +341,10 @@ class SceneViewerApplication(Application):
         quirks.json path); device: 'cuda' (raises without a card) or
         'cpu'.  A camera index past the scene's cameras raises
         ValueError.  GRANITE_DEBUG_GRAPH set routes every frame through
-        graph/debug.execute_debug; GRANITE_WATCH_KERNELS set watches the
-        kernel sources (post_frame)."""
+        graph/debug.execute_debug (its per-pass host ms go to the hub's
+        interval stats, `hub.stats`); GRANITE_WATCH_KERNELS set watches
+        the kernel sources (post_frame).  The graph bake takes the
+        shadow, surface and lighting executors from `renderer_suite`."""
         super().__init__(device)
         self.config = (ViewerConfig.from_json(args.config)
                        if args is not None and getattr(args, "config", None)
@@ -481,10 +488,12 @@ class SceneViewerApplication(Application):
             self._fs.install_notification(self._config_path,
                                           self._config_changed)
         # GRANITE_DEBUG_GRAPH: breadcrumbs and the NaN/Inf scan, pass by
-        # pass; the per-pass ms accumulate in pass_stats.
+        # pass; the per-pass ms accumulate in the hub's interval stats.
         self._debug_graph = bool(os.environ.get("GRANITE_DEBUG_GRAPH"))
-        self.pass_stats = TimestampIntervalStats()
         self.last_breadcrumbs = None
+        # The role -> pass executor registry the graph bake consults; a
+        # role set with set_renderer stays across bakes.
+        self.renderer_suite = RendererSuite()
         # GRANITE_WATCH_KERNELS: [path, mtime] of the op and renderer
         # modules and the CUDA sources (opt-in: runs stay deterministic).
         self._kernel_watch = []
@@ -702,6 +711,15 @@ class SceneViewerApplication(Application):
                 else _JITTER_TABLES[aa]
             self._jitter = TAA.TemporalJitter(phases, self._rw, self._rh)
 
+        # The RendererSuite (renderer.hpp:182-211): each surface, shadow
+        # and lighting pass below takes its executor from the suite.
+        c = self.config
+        self.renderer_suite.set_default_renderers(self, SuiteConfig(
+            pcf_kernel_wide=c.pcf_kernel_wide,
+            directional_light_vsm=c.directional_light_shadows_vsm,
+            forward_z_prepass=c.forward_depth_prepass,
+            cascaded_directional_shadows=(
+                c.directional_light_cascaded_shadows)))
         use_shadow = self.config.directional_light_shadows
         cascaded = self.config.directional_light_cascaded_shadows
         if use_shadow:
@@ -715,7 +733,7 @@ class SceneViewerApplication(Application):
                     "shadow-depth", AttachmentInfo(
                         SizeClass.ABSOLUTE, s, s, channels=2 if vsm else 1,
                         layers=4 if cascaded else 1)) \
-                .set_execute(self._shadow_pass)
+                .set_execute(self.renderer_suite.shadow_renderer())
         if self.ocean is not None:
             n = self.ocean.config.fft_resolution
             g.add_pass("ocean-fft", Queue.ASYNC_COMPUTE) \
@@ -748,7 +766,8 @@ class SceneViewerApplication(Application):
                 fwd.add_texture_input("shadow-depth")
             if self.ocean is not None:
                 fwd.add_texture_input("ocean-maps")
-            fwd.set_execute(self._forward_pass)
+            fwd.set_execute(self.renderer_suite.main_geometry_renderer(
+                deferred=False, motion_vectors=self._use_taa))
 
         hdr_name = "hdr-ssr" if self.config.renderer == "deferred" \
             and self.config.ssr else "hdr"
@@ -847,7 +866,8 @@ class SceneViewerApplication(Application):
         self._add_surface_outputs(gb, rel)
         if self.ocean is not None:
             gb.add_texture_input("ocean-maps")
-        gb.set_execute(self._gbuffer_pass)
+        gb.set_execute(self.renderer_suite.main_geometry_renderer(
+            deferred=True, motion_vectors=self._use_taa))
         if self.config.ssao:
             g.add_pass("ssao", Queue.COMPUTE) \
                 .add_texture_input("depth-main") \
@@ -868,7 +888,8 @@ class SceneViewerApplication(Application):
         if self.ocean is not None:
             # the transparent queue re-runs the (displaced) transform
             light.add_texture_input("ocean-maps")
-        light.set_execute(self._lighting_pass)
+        light.set_execute(
+            self.renderer_suite.get(SuiteType.DeferredLighting))
         if self.config.ssr:
             # Screen-space reflections over the lit frame (deferred only).
             g.add_pass("ssr", Queue.GRAPHICS) \
@@ -1061,16 +1082,7 @@ class SceneViewerApplication(Application):
             ctx.params, ctx.input("shadow-depth")
             if self.config.directional_light_shadows else None)
         color = shade_surface_fused(surf, ctx.params, ao=ao, **kw)
-        if self._has_transparent:
-            clip, wpos, wnrm, wtan = xf if xf is not None \
-                else self._transform(ctx)
-            for k in ("background", "width", "height"):
-                kw.pop(k)
-            color = transparent_composite(
-                self.packed, clip, depth, color,
-                ctx.params["transparent_mask"], ctx.params, self._rw,
-                self._rh, world_pos=wpos, world_normal=wnrm,
-                world_tangent=wtan, **kw)
+        color = self._apply_transparent(ctx, color, depth, xf, kw)
         if self.config.volumetric_fog:
             # Reverse-Z, infinite far: view depth = znear / ndc z; the
             # background takes the whole fog range.
@@ -1079,6 +1091,21 @@ class SceneViewerApplication(Application):
                                   torch.full_like(depth, Z_RANGE))
             color = apply_fog(color, world_z, ctx.input("fog-volume"))
         return color
+
+    def _apply_transparent(self, ctx, hdr, depth, xf, kw):
+        """The transparent queue forward-shaded over the lit frame
+        (Queue::Transparent; the suite's ForwardTransparent role).  xf:
+        the vertex transform or None; kw: the lit frame's light_kwargs."""
+        if not self._has_transparent:
+            return hdr
+        clip, wpos, wnrm, wtan = xf if xf is not None \
+            else self._transform(ctx)
+        kw = {k: v for k, v in kw.items()
+              if k not in ("background", "width", "height")}
+        return transparent_composite(
+            self.packed, clip, depth, hdr, ctx.params["transparent_mask"],
+            ctx.params, self._rw, self._rh, world_pos=wpos,
+            world_normal=wnrm, world_tangent=wtan, **kw)
 
     def _motion_vectors(self, ctx, surf, depth):
         p = ctx.params
@@ -1721,7 +1748,7 @@ class SceneViewerApplication(Application):
             params = self.build_frame_params(frame_time, elapsed_time)
         if self._debug_graph:
             out, self._history, self.last_breadcrumbs = execute_debug(
-                self.graph, params, self._history, stats=self.pass_stats)
+                self.graph, params, self._history, device=self.hub)
             return out
         out, self._history = self.graph.execute(params, self._history)
         return out

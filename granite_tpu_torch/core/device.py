@@ -1,11 +1,21 @@
-"""Device probe and numeric policy (counterpart of granite_tpu/core/device.py).
+"""Device probe, numeric policy and the frame ring (counterpart of
+granite_tpu/core/device.py; reference vulkan/context.hpp:249 Context and
+vulkan/device.hpp:167 Device).
 
 TF32 is switched off for float32 matmuls and cuDNN: vertex transforms
 run through matmuls (renderer/scene_renderer.transform_vertices) and
 TF32 keeps about three decimal digits, which moves triangle edges and
 breaks parity with the JAX reference.
 
-Nothing here falls back: asking for `cuda` without a usable card raises.
+The frame ring: `Device` holds `frames_in_flight` FrameContexts.  The
+headless runner tracks each timed frame's output in the current context
+(one CUDA event on the stream the frame ran on) and moves the ring on;
+`next_frame_context` then waits for the frame `frames_in_flight` back
+and nothing newer (Device::next_frame_context, device.cpp:2669-2704), so
+the host never queues more than that many frames ahead of the card.
+
+Nothing here falls back: asking for `cuda` without a usable card raises,
+and a fault while waiting on a frame surfaces where it happens.
 """
 
 from __future__ import annotations
@@ -15,6 +25,10 @@ import shutil
 import subprocess
 
 import torch
+
+from ..utils.environment import get_environment_int
+from ..utils.logging import LOGI
+from .stats import TimestampIntervalStats
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -67,3 +81,105 @@ def describe() -> dict:
         info["device_name"] = torch.cuda.get_device_name(0)
         info["device_count"] = torch.cuda.device_count()
     return info
+
+
+class Backend:
+    """Device query (the Context analogue, context.hpp:249) for one
+    torch device.  Not ported, being XLA's and the TPU's:
+    ContextCreationFlags (prefer_tpu, enable_x64) and XLA's persistent
+    compilation cache with GRANITE_DISABLE_PIPELINE_CACHE; the port's
+    counterpart of that cache is kernels/build.py's content-hashed build
+    directory."""
+
+    def __init__(self, device="cuda"):
+        self.default_device = resolve_device(device)
+        if self.default_device.type == "cuda":
+            self.devices = [torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())]
+            self.platform = "gpu"
+            self.device_kind = torch.cuda.get_device_name(
+                self.default_device)
+        else:
+            self.devices = [self.default_device]
+            self.platform = "cpu"
+            self.device_kind = "cpu"
+        self.num_devices = len(self.devices)
+
+    def gpu_name(self) -> str:
+        """The stat JSON's `gpu` field: the card's name, or "cpu"."""
+        return self.device_kind
+
+    def memory_stats(self) -> dict:
+        """torch.cuda.memory_stats of the card ({} on the CPU)."""
+        if self.platform == "gpu":
+            return torch.cuda.memory_stats(self.default_device)
+        return {}
+
+
+class FrameContext:
+    """One slot of the frame ring (PerFrame, device.hpp:641-700): the
+    events of the frames tracked in it, and host scratch released when
+    the slot is reused."""
+
+    def __init__(self, index: int, device: torch.device):
+        self.index = index
+        self.device = device
+        self.in_flight: list = []   # what begin() waits on
+        self.recycle: list = []     # deferred-destroy analogue
+
+    def track(self, *tensors) -> None:
+        """Record one event on the current stream of the card (the stream
+        the frame was enqueued on).  The CPU's work is done when its call
+        returns, so there it records nothing."""
+        if tensors and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self.in_flight.append(event)
+
+    def begin(self) -> None:
+        """Wait until the work tracked in this slot is complete (the
+        timeline-fence wait of PerFrame::begin), then clear the slot."""
+        for event in self.in_flight:
+            event.synchronize()
+        self.in_flight.clear()
+        self.recycle.clear()
+
+
+class Device:
+    """The frame ring and the named-interval stats of one device (the
+    Device hub, device.hpp:167, without command machinery)."""
+
+    FRAMES_IN_FLIGHT_DEFAULT = 2
+
+    def __init__(self, device="cuda", frames_in_flight: int | None = None):
+        """frames_in_flight: the ring's size; None (or 0) reads
+        GRANITE_VULKAN_SWAPCHAIN_IMAGES, else 2; at least 1."""
+        self.backend = Backend(device)
+        n = frames_in_flight or get_environment_int(
+            "GRANITE_VULKAN_SWAPCHAIN_IMAGES", self.FRAMES_IN_FLIGHT_DEFAULT)
+        dev = self.backend.default_device
+        self._frames = [FrameContext(i, dev) for i in range(max(n, 1))]
+        self._frame_index = 0
+        self.frame_counter = 0
+        self.stats = TimestampIntervalStats()
+        LOGI("Device created on %s (%d frame contexts)",
+             self.backend.gpu_name(), len(self._frames))
+
+    def frame(self) -> FrameContext:
+        return self._frames[self._frame_index]
+
+    def next_frame_context(self) -> FrameContext:
+        """Move the ring on and wait for the frame len(ring) back."""
+        self._frame_index = (self._frame_index + 1) % len(self._frames)
+        self.frame_counter += 1
+        f = self._frames[self._frame_index]
+        f.begin()
+        return f
+
+    def wait_idle(self) -> None:
+        for f in self._frames:
+            f.begin()
+
+    def register_time_interval(self, tag: str, seconds: float) -> None:
+        """Named interval aggregation (query_pool.hpp:200)."""
+        self.stats.accumulate(tag, seconds)

@@ -11,8 +11,9 @@ Reference analogues:
     outputs for NaN/Inf (non-fatal: the pass is flagged and logged).
   * per-pass timing: the QueryPool timestamp path (query_pool.hpp:133):
     each pass's milliseconds, host clock around the pass and its
-    synchronize, land in `stats` (a core.stats.TimestampIntervalStats)
-    and the chrome trace (utils/timeline_trace.TimelineTraceFile).
+    synchronize, go to `device.register_time_interval` (a
+    core.device.Device, the app's hub) as `pass:<name>` and to the
+    chrome trace (utils/timeline_trace.TimelineTraceFile).
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def _synchronize(outs: dict) -> None:
 
 
 def execute_debug(graph, params, history, check_numerics: bool = True,
-                  stats=None) -> tuple:
+                  device=None) -> tuple:
     """Run the baked graph one pass at a time, synchronizing the device
     after each.  -> (backbuffer, new_history, breadcrumbs).  Much slower
     than graph.execute (a host round trip every pass, and a scan of every
@@ -81,8 +82,8 @@ def execute_debug(graph, params, history, check_numerics: bool = True,
         if trace is not None:
             trace.complete_event(f"pass:{pname}",
                                  (t0 - t_base) / 1e3, dt_ms * 1e3, tid=1)
-        if stats is not None:
-            stats.accumulate(f"pass:{pname}", dt_ms / 1e3)
+        if device is not None:
+            device.register_time_interval(f"pass:{pname}", dt_ms / 1e3)
         if check_numerics:
             for k, v in outs.items():
                 if v.is_floating_point() and not bool(v.isfinite().all()):

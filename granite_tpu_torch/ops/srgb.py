@@ -14,6 +14,13 @@ def linear_to_srgb(x):
     return torch.where(x <= 0.0031308, lo, hi)
 
 
+def srgb_to_linear(x):
+    x = x.clamp(0.0, 1.0)
+    lo = x / 12.92
+    hi = torch.pow((x + 0.055) / 1.055, 2.4)
+    return torch.where(x <= 0.04045, lo, hi)
+
+
 def srgb_u8_to_linear_np(arr: np.ndarray) -> np.ndarray:
     """uint8 sRGB (H, W, 4) -> float32 linear, alpha kept linear (host
     LUT, texture upload path)."""
@@ -25,10 +32,15 @@ def srgb_u8_to_linear_np(arr: np.ndarray) -> np.ndarray:
     return out
 
 
-def encode_rgba8(linear_rgb):
-    """Linear float RGB (H, W, 3) -> sRGB uint8 RGBA (H, W, 4), alpha 255
-    (the swapchain-blit analogue)."""
+def encode_rgba8(linear_rgb, alpha=None):
+    """Linear float RGB (H, W, 3) -> sRGB uint8 RGBA (H, W, 4) (the
+    swapchain-blit analogue); alpha (H, W) or (H, W, 1) in [0, 1],
+    clamped, or None for 255."""
     u8 = torch.round(linear_to_srgb(linear_rgb) * 255.0).to(torch.uint8)
-    a = torch.full(u8.shape[:-1] + (1,), 255, dtype=torch.uint8,
-                   device=u8.device)
+    if alpha is None:
+        a = torch.full(u8.shape[:-1] + (1,), 255, dtype=torch.uint8,
+                       device=u8.device)
+    else:
+        a = torch.round(alpha.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        a = a[..., None] if a.dim() == u8.dim() - 1 else a
     return torch.cat([u8, a], dim=-1)

@@ -1,5 +1,5 @@
-"""Camera / FPSCamera (copy of the parts of granite_tpu/scene/camera.py
-the port uses; reference: renderer/camera.hpp:32,116).
+"""Camera / FPSCamera (copy of granite_tpu/scene/camera.py without the
+unused transform_z_scale; reference: renderer/camera.hpp:32,116).
 tests/test_torch_host_copies.py holds this copy equal to the original."""
 
 from __future__ import annotations
@@ -8,7 +8,7 @@ import numpy as np
 
 from ..math.muglm import (
     INFINITE_FAR_PLANE, look_at_quat, mat4_cast, ortho, perspective,
-    quat_rotate, translate,
+    quat_from_axis_angle, quat_mul, quat_normalize, quat_rotate, translate,
 )
 
 
@@ -59,11 +59,39 @@ class Camera:
     def get_front(self) -> np.ndarray:
         return quat_rotate(_conj(self.rotation), [0, 0, -1])
 
+    def get_right(self) -> np.ndarray:
+        return quat_rotate(_conj(self.rotation), [1, 0, 0])
+
+    def get_up(self) -> np.ndarray:
+        return quat_rotate(_conj(self.rotation), [0, 1, 0])
+
 
 def _conj(q):
     return np.array([q[0], -q[1], -q[2], -q[3]], np.float32)
 
 
 class FPSCamera(Camera):
-    """The viewer's camera (camera.hpp:116).  The viewer only places it,
-    so the original's fly controls (move, rotate) are left out."""
+    """Input-driven fly camera (camera.hpp:116); app/input.FPSCameraInput
+    drives its move and rotate."""
+
+    def __init__(self):
+        super().__init__()
+        self.speed = 3.0
+        self.turn_speed = 1.5
+
+    def move(self, forward: float, right: float, up: float,
+             dt: float) -> None:
+        self.position = (self.position
+                         + self.get_front() * (forward * self.speed * dt)
+                         + self.get_right() * (right * self.speed * dt)
+                         + self.get_up() * (up * self.speed * dt)).astype(
+                             np.float32)
+
+    def rotate(self, yaw: float, pitch: float, dt: float) -> None:
+        dy = quat_from_axis_angle([0, 1, 0], yaw * self.turn_speed * dt)
+        dp = quat_from_axis_angle(self.get_right(),
+                                  pitch * self.turn_speed * dt)
+        # world-space increments compose on the right of the view
+        # rotation's inverse; equivalently pre-multiply the conjugates.
+        self.rotation = quat_normalize(
+            quat_mul(self.rotation, _conj(quat_mul(dy, dp))))

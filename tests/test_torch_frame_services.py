@@ -131,7 +131,7 @@ def test_debug_graph_gives_the_same_frame(tmp_path, monkeypatch):
     assert len(crumbs.completed) >= 10
     assert crumbs.failed is None and crumbs.nan_passes == []
     assert set(crumbs.pass_times_ms) == set(crumbs.completed)
-    assert set(app.pass_stats.averages_us()) == \
+    assert set(app.hub.stats.averages_us()) == \
         {f"pass:{p}" for p in crumbs.completed}
     stat = tmp_path / "stat.json"
     assert run_headless(app, types.SimpleNamespace(

@@ -108,16 +108,22 @@ def test_default_scene_arguments_render():
 
 class _Recorder:
     """An app that records the runner's calls, with the surface both
-    runners use (the JAX runner's device, frame and stats hooks too)."""
+    runners use: its frame-ring hub (track, next_frame_context; the JAX
+    runner's `app.device`, the port's `app.hub`) records its calls too,
+    and so does teardown."""
 
     def __init__(self):
         self.calls = []
+        frame = types.SimpleNamespace(
+            track=lambda out: self.calls.append(("track",)))
         self.device = types.SimpleNamespace(
             type="cpu",
             backend=types.SimpleNamespace(gpu_name=lambda: "cpu"),
-            frame=lambda: types.SimpleNamespace(track=lambda out: None),
-            next_frame_context=lambda: None,
+            frame=lambda: frame,
+            next_frame_context=lambda: self.calls.append(
+                ("next_frame_context",)),
             stats=types.SimpleNamespace(averages_us=lambda: {}))
+        self.hub = self.device
 
     def _image(self):
         return torch.zeros((4, 6, 4), dtype=torch.uint8)
@@ -140,7 +146,7 @@ class _Recorder:
         self.calls.append(("post_frame",))
 
     def teardown(self):
-        pass
+        self.calls.append(("teardown",))
 
 
 def _args(**kw):
@@ -159,14 +165,16 @@ def test_runner_calls_match_jax(kw):
     """The port's runner renders with the JAX runner's (frame time,
     elapsed time) sequence: warm-up frames at elapsed 0, timed frame i at
     (i + 1) x step under --time-step, each timed frame followed by
-    post_frame (texture streaming's latch) and the warm-up frames and the
-    chain by none; --chain and --capture-probe call the app as the JAX
-    runner does."""
+    the frame ring's track and next_frame_context, then post_frame
+    (texture streaming's latch), and the warm-up frames and the chain by
+    none; --chain and --capture-probe call the app as the JAX runner
+    does; teardown comes last."""
     got, want = _Recorder(), _Recorder()
     assert run_headless(got, _args(**kw)) == 0
     assert jax_run_headless(want, _args(**kw)) == 0
     assert got.calls == want.calls
     assert len(got.calls) > 1
+    assert got.calls[-1] == ("teardown",)
 
 
 def test_png_reference_writes_psnr_and_rejects_other_sizes(tmp_path):

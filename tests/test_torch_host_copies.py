@@ -26,6 +26,7 @@ from granite_tpu.scene_export import camera_export as JCE
 from granite_tpu.utils import image_compare as JIC
 from granite_tpu.utils.timer import FrameTimer as JaxFrameTimer
 from granite_tpu.app import video_sink as JVS
+from granite_tpu.utils import hashing as JH
 from granite_tpu_torch.app import bench_scene as TB
 from granite_tpu_torch.math import frustum as TF
 from granite_tpu_torch.math import muglm as TM
@@ -37,6 +38,8 @@ from granite_tpu_torch.scene import scene_formats as TSF
 from granite_tpu_torch.scene.camera import FPSCamera
 from granite_tpu_torch.utils.image_io import load_image, save_png
 from granite_tpu_torch.app import video_sink as TVS
+from granite_tpu_torch import utils as TU
+from granite_tpu_torch.utils import hashing as TH
 from granite_tpu_torch.math.transforms import decompose_trs
 from granite_tpu_torch.scene_export import camera_export as TCE
 from granite_tpu_torch.utils import image_compare as TIC
@@ -155,6 +158,61 @@ def test_fps_camera_view_and_projection(ortho):
         _eq(cams[0].get_projection(), cams[1].get_projection())
         assert (cams[0].fovy, cams[0].aspect, cams[0].znear, cams[0].zfar) \
             == (cams[1].fovy, cams[1].aspect, cams[1].znear, cams[1].zfar)
+
+
+def test_fps_camera_fly_controls():
+    """move and rotate on seeded steps, speeds and time steps: position
+    and rotation within 1e-6 of the original's after every call."""
+    rng = _rng()
+    cams = FPSCamera(), JaxCamera()
+    eye, at = rng.normal(size=3) * 3, rng.normal(size=3)
+    speed, turn = rng.uniform(0.5, 5.0, size=2)
+    for cam in cams:
+        cam.look_at(eye, at)
+        cam.speed, cam.turn_speed = float(speed), float(turn)
+    for _ in range(40):
+        f, r, u, yaw, pitch = rng.uniform(-1.0, 1.0, size=5)
+        dt = float(rng.uniform(0.0, 0.1))
+        for cam in cams:
+            cam.move(f, r, u, dt)
+            cam.rotate(yaw, pitch, dt)
+        for name in ("position", "rotation"):
+            got, want = getattr(cams[0], name), getattr(cams[1], name)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for a, b in ((cams[0].get_right(), cams[1].get_right()),
+                 (cams[0].get_up(), cams[1].get_up())):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_hashing_known_vectors_and_streams():
+    """FNV-1a's published 64-bit vectors, then seeded streams of bytes,
+    strings, ints (negative ones wrap) and Hasher calls: the same hashes
+    as the original's, exactly; the package exports them as the JAX
+    package's utils does."""
+    assert TU.fnv1a is TH.fnv1a and TU.Hasher is TH.Hasher
+    assert TU.hash_combine is TH.hash_combine
+    assert TH.fnv1a(b"") == 0xCBF29CE484222325
+    assert TH.fnv1a(b"a") == 0xAF63DC4C8601EC8C
+    assert TH.fnv1a("foobar") == 0x85944171F73967E8
+    rng = _rng()
+    for _ in range(50):
+        data = rng.integers(0, 256, size=int(rng.integers(0, 64)),
+                            dtype=np.uint8).tobytes()
+        text = "".join(chr(int(c)) for c in rng.integers(32, 0x3000,
+                                                         size=8))
+        n = int(rng.integers(-2 ** 63, 2 ** 63))
+        seed = int(rng.integers(0, 2 ** 63))
+        for value in (data, text, n):
+            assert TH.fnv1a(value) == JH.fnv1a(value)
+            assert TH.hash_combine(seed, value) == \
+                JH.hash_combine(seed, value)
+        f = float(rng.normal())
+        u = int(rng.integers(0, 2 ** 63)) * 3
+        got, want = TH.Hasher(seed), JH.Hasher(seed)
+        for h in (got, want):
+            h.data(data).u32(u).u64(-u).f32(f).string(text)
+        assert got.get() == want.get()
 
 
 def _same_mesh(a, b):

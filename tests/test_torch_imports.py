@@ -41,7 +41,9 @@ def test_port_imports_without_jax():
     # native codec's loader included), the occlusion and volume modules,
     # the compile probe, the UI and event copies, the triangle demo and
     # texture streaming's modules (the OS-service copies, the texture
-    # codec, the streamer, the debug graph) are among them
+    # codec, the streamer, the debug graph), the video player and its
+    # source, input, the renderer suite, hashing, the frame ring and the
+    # scene-export texture utils and TMX parser are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
         "renderer.ground", "renderer.ocean", "scene.gltf",
@@ -55,7 +57,10 @@ def test_port_imports_without_jax():
         "app.application", "app.triangle_demo", "utils.environment",
         "utils.timeline_trace", "threading_", "threading_.thread_group",
         "filesystem", "filesystem.vfs", "filesystem.asset_manager",
-        "native.texture", "assets.streaming", "graph.debug")} \
+        "native.texture", "assets.streaming", "graph.debug",
+        "app.video_player", "app.video_source", "app.input",
+        "renderer.suite", "utils.hashing", "core.device",
+        "scene_export.texture_utils", "scene_export.tmx_parser")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
