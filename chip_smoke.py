@@ -167,6 +167,24 @@
                     residency must render bit-equal to it with
                     textureStreaming false (same bundle bytes, same
                     kernels).
+     baked_env:     the bench config with a baked environment: set-up
+                    bakes the viewer's own sky (procedural_sky_equirect
+                    (128) with its sky_params) through `python -m
+                    granite_tpu_torch.tools.convert_equirect_to_environment`'s
+                    entry point at --size BAKE_SIZE (the viewer's strip
+                    size) --samples BAKE_SAMPLES on the card, and again
+                    on the CPU (the card's GGX chain within BAKE_REL_GATE
+                    of each level's magnitude; both bakes' seconds), then
+                    sets app.environment to Environment(sky, sky_params,
+                    baked=the card's bake): B3's environment fetch reads
+                    the prefiltered chain, extended by box mips, through
+                    the bench strip's shape.  Orbiting.  The frame from a
+                    fresh history differs from the default environment's
+                    frame from the same camera and history in >= 0.1% of
+                    the pixels; B3's f32 C=4 environment fetch on the
+                    last timed frame's inputs against its plain version
+                    (1e-6) on the baked strip and, for the same inputs,
+                    on the default strip, both timed.
      video_player:  `python -m granite_tpu_torch.app.video_player`'s
                     entry point (main) on the card at 1920x1080 with
                     --video-size 1024 over a PNG sequence of VIDEO_COUNT
@@ -185,6 +203,23 @@
    still and only the jitter moves, as in the reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
    render graph's `pass:` ranges and the viewer's `decals` range).
+   Phase tools, its launches counted from 0 like the compile probe's,
+   each tool through its entry point (main) with --device cuda:
+   brdf_lut_generate at its defaults (256^2, 512 samples; seconds) and
+   integrate_brdf at BRDF_CHECK_SIZE on the card against the CPU
+   (BRDF_GATE); hw_verify at 1920x1080 (exit 0, its report printed as one
+   JSON line; sequential and chained frames byte-equal; B2 once a chained
+   frame); quality_receipt at 1920x1080 (luma PSNR, max abs diff,
+   changed share); aa_bench at its defaults (640x360, 16 chained frames,
+   a viewer process a mode) but 4 of its 6 modes, AA_MODES; every mode's
+   PNG through the image gate; us and PSNR a mode); sweep_scene with the bench config,
+   SWEEP_ITERATIONS iterations at its defaults (1280x720, 32 frames, a
+   viewer process an iteration); gltf_repacker --meshlets
+   --compress-textures on the streaming path's glTF bench scene (its
+   images without sidecars): vertices before and after, MLT1 meshlets,
+   seconds; every repacked mesh through MLT1 and back within a 16-bit
+   step of its extent; the repacked file's frame and the source's at
+   1920x1080 through the image gate, their luma PSNR printed.
 4. Cross-device checks at 128x72 on the card and on the CPU (plain
    versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
    forward_shadow, deferred_smaa, forward_vsm_fxaa, deferred_taa_fog,
@@ -214,7 +249,8 @@ Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
 1080p bench-shape case, the other cases under "cases", max_abs_err over
 every case of the kernel, launches summed over the main paths and per
-path, the compiler's attributes), the card, then the result.
+path, the compiler's attributes; the tools phase's numbers under
+"tools"), the card, then the result.
 """
 
 from __future__ import annotations
@@ -284,6 +320,21 @@ STREAM_BUDGET_MB, STREAM_BUDGET_FRAMES = 48, 10
 STREAM_CAP_S = 30.0
 # the small streamed test scene of the cross-device check (phase 4)
 STREAM_SMALL_IMAGE = 64
+# baked_env: the bench viewer's own sky (procedural_sky_equirect(128))
+# baked by convert_equirect_to_environment on the card at the viewer's
+# strip size (so the baked strip has the bench strip's shape), checked
+# against the same bake on the CPU within BAKE_REL_GATE of each level's
+# magnitude (float32 atan2 and arccos round differently on the two).
+BAKE_SIZE, BAKE_SAMPLES, BAKE_REL_GATE = 256, 64, 1e-4
+# The tools phase: brdf_lut_generate at its defaults and again at
+# BRDF_CHECK_SIZE on both devices (BRDF_GATE, float64 integration cast
+# to f32), sweep_scene's iterations, aa_bench's modes.  With aa_bench's
+# 6 default modes (a viewer process each, ~15.7 s) the phase took 156.1 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, past its 150 s: smaa and smaaT2X
+# are cut.
+BRDF_CHECK_SIZE, BRDF_GATE = 64, 1e-6
+SWEEP_ITERATIONS = 2
+AA_MODES = ("none", "fxaa", "taa", "taaFSR2")
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -296,7 +347,8 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "volumetric": (VOLUMES_CONFIG, ("B1", "B2", "B3", "B4")),
               "cascades": (CASCADES_CONFIG, ("B1", "B2", "B3", "B4")),
               "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4")),
-              "streaming": (STREAM_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "streaming": (STREAM_CONFIG, ("B1", "B2", "B3", "B4")),
+              "baked_env": (BENCH_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
 # decal node, on the animated `.scene`, knobs added, camera (eye, target)
 # or None).  Each runs with materialTileSampler "true", so both devices
@@ -929,24 +981,32 @@ def b3_main_cases(app, params, planes, cov, surf, label: str) -> list:
     import torch
     from granite_tpu_torch.ops import raster_fused as RF
     from granite_tpu_torch.renderer import scene_renderer as SR
-    from granite_tpu_torch.renderer.environment import env_fetch_coords
 
     def ch(base, n):
         return planes[base:base + n].movedim(0, -1)
 
-    packed, env = app.packed, app.environment
+    packed = app.packed
     lod = SR.material_lod(packed, ch(RF.PLANE_DUVDX, 2),
                           ch(RF.PLANE_DUVDY, 2), 0.0)
     bundle_id = planes[RF.PLANE_BUNDLE].to(torch.int32)
     bnd = torch.where(cov, bundle_id, torch.full_like(bundle_id, -1))
     uv = ch(RF.PLANE_UV, 2)
-    refl, elod = SR.reflection(surf, params["camera_pos"], env.num_levels)
-    eb, eu, ev = env_fetch_coords(env.strips, refl, surf["covered"])
     return [b3_case(f"material f16 C=12 {label}",
                     (packed.bundles, bnd, uv[..., 0], uv[..., 1], lod,
                      SR.MATERIAL_CHANNELS)),
             b3_case(f"environment f32 C=4 {label}",
-                    (env.strips, eb, eu, ev, elod, 4))]
+                    b3_env_args(app, params, surf, app.environment.strips))]
+
+
+def b3_env_args(app, params, surf, strips):
+    """B3's environment fetch as compute_env_products makes it, from
+    `strips` (the app's environment's or another of its shape)."""
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    from granite_tpu_torch.renderer.environment import env_fetch_coords
+    refl, elod = SR.reflection(surf, params["camera_pos"],
+                               app.environment.num_levels)
+    eb, eu, ev = env_fetch_coords(strips, refl, surf["covered"])
+    return (strips, eb, eu, ev, elod, 4)
 
 
 def b3_edge_args(strips, channels: int, height: int, width: int, seed: int):
@@ -1318,7 +1378,7 @@ def volumes_check(app) -> dict:
     import torch
 
     def frame0():
-        app._history = app.graph.initial_history(app.device)
+        app.reset_history()
         return app.render_frames_chained(FRAME_TIME, 0.0, 1)
 
     with_volumes = frame0()
@@ -1425,7 +1485,7 @@ def cascades_check(app, stats: dict, frames: list, params,
     upload_ms = (time.monotonic() - t) * 1e3 / reps
 
     def frame0():
-        app._history = app.graph.initial_history(app.device)
+        app.reset_history()
         return app.render_frames_chained(FRAME_TIME, 0.0, 1)
 
     with_all = frame0()
@@ -1744,6 +1804,7 @@ def main_path(name: str, results: dict) -> dict:
 
     cfg, required = MAIN_PATHS[name]
     streaming = name == "streaming"
+    baked = name == "baked_env"
     run = stream_frames if streaming else chained_frames
     if streaming:
         files = tempfile.TemporaryDirectory()
@@ -1764,6 +1825,15 @@ def main_path(name: str, results: dict) -> dict:
         app = make_app(cfg, False, "cuda", scene=scene)
     else:
         app = make_app(cfg, True, "cuda")
+    if baked:
+        # the bake's seconds are printed apart, not set-up (its torch ops
+        # launch no kernel of the port)
+        t_bake = time.monotonic()
+        default_env = app.environment
+        files = tempfile.TemporaryDirectory()
+        app.environment = bake_environment(app, files.name)
+        files.cleanup()
+        t0 += time.monotonic() - t_bake
     app.swapchain_updated(WIDTH, HEIGHT)
     if name == "decals_meshlet":
         # the check's frames and re-bake are not set-up: the set-up
@@ -1853,6 +1923,8 @@ def main_path(name: str, results: dict) -> dict:
         streaming_check(app, frames, frame0, last["params"], results,
                         scene, paths)
         files.cleanup()
+    if baked:
+        baked_env_check(app, default_env, last["params"], results)
     if name == "gltf_animated":
         check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
               f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
@@ -2037,7 +2109,7 @@ def streaming_check(app, frames: list, frame0, params, results: dict,
         check(app.packed.bundles[b].cpu().numpy().tobytes()
               == strip.tobytes(),
               f"streamed bundle row {b} differs from the host strip")
-    app._history = app.graph.initial_history(app.device)
+    app.reset_history()
     changed = backbuffer_diff(frame0, app.render_frame(FRAME_TIME, 0.0),
                               levels=0)
     log(f"streaming: the resident frame differs from frame 0 in {changed} "
@@ -2117,7 +2189,7 @@ def streaming_without_sidecars(scene: str, paths: list) -> None:
         app.swapchain_updated(WIDTH, HEIGHT)
         if label == "streamed":
             stream_to_residency(app, sync_each=False)
-            app._history = app.graph.initial_history(app.device)
+            app.reset_history()
         imgs[label] = app.render_frame(FRAME_TIME, 0.0)
         bundles[label] = app.packed.bundles
         del app
@@ -2154,7 +2226,7 @@ def streaming_cross_device() -> None:
         app.swapchain_updated(128, 72)
         stream_to_residency(app, sync_each=False,
                             wait_idle=ThreadGroup.get())
-        app._history = app.graph.initial_history(app.device)
+        app.reset_history()
         out = None
         for i in range(2):
             out = app.render_frame(FRAME_TIME, i * FRAME_TIME)
@@ -2165,6 +2237,263 @@ def streaming_cross_device() -> None:
         f"luma PSNR {p:.2f} dB")
     check(p >= PSNR_GATE_DB,
           f"cross-device streamed textures PSNR {p:.2f} < {PSNR_GATE_DB}")
+
+
+def bake_environment(app, directory: str):
+    """baked_env's set-up: the viewer's own sky as .npy, baked by
+    `python -m granite_tpu_torch.tools.convert_equirect_to_environment`'s
+    entry point at BAKE_SIZE with BAKE_SAMPLES on the card and again on
+    the CPU; the card's chain within BAKE_REL_GATE of the CPU's (max abs
+    difference over each level's max).  -> the baked Environment (the
+    viewer's sky_params kept: the background stays analytic)."""
+    import numpy as np
+    import torch
+    from granite_tpu_torch.renderer.environment import (
+        Environment, load_baked_environment, procedural_sky_equirect,
+    )
+    from granite_tpu_torch.tools import convert_equirect_to_environment as CE
+    sky = app.environment.sky_params
+    src = os.path.join(directory, "sky.npy")
+    np.save(src, procedural_sky_equirect(128, **sky))
+    bakes, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(directory, f"sky_{device}.genv.npz")
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        rc = CE.main([src, "--output", path, "--size", str(BAKE_SIZE),
+                      "--samples", str(BAKE_SAMPLES), "--device", device])
+        torch.cuda.synchronize()
+        seconds[device] = time.monotonic() - t
+        check(rc == 0, f"the environment bake on {device} exited {rc}")
+        bakes[device] = load_baked_environment(path)
+    card, cpu = bakes["cuda"], bakes["cpu"]
+    abs_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card["reflection"], cpu["reflection"]))
+    rel_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(card["reflection"], cpu["reflection"]))
+    texel_rel = max(float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30))
+                          .max())
+                    for a, b in zip(card["reflection"], cpu["reflection"]))
+    env = Environment(procedural_sky_equirect(128, **sky), sky_params=sky,
+                      baked=card, device=app.device)
+    log(f"baked_env set-up: sky {BAKE_SIZE}^2 x {len(card['reflection'])} "
+        f"levels, {BAKE_SAMPLES} samples: bake {seconds['cuda']:.3f} s on "
+        f"the card, {seconds['cpu']:.3f} s on the CPU; card vs CPU max abs "
+        f"err {abs_err:.3g}, max rel err {rel_err:.3g} of a level's "
+        f"magnitude ({texel_rel:.3g} of a texel's own value); sh equal "
+        f"{bool(np.array_equal(card['sh'], cpu['sh']))}; strip "
+        f"{tuple(env.strips.shape)} (default "
+        f"{tuple(app.environment.strips.shape)})")
+    check(rel_err <= BAKE_REL_GATE,
+          f"the card's bake differs from the CPU's by {rel_err}")
+    check(env.strips.shape == app.environment.strips.shape
+          and env.num_levels == app.environment.num_levels,
+          "the baked strip's shape differs from the bench strip's")
+    return env
+
+
+def baked_env_check(app, default_env, params, results: dict) -> None:
+    """baked_env's gates after its timed frames: the frame from a fresh
+    history differs from the default environment's frame from the same
+    camera and history in >= MIN_CHANGED_SHARE of the pixels; B3's
+    environment fetch on the last timed frame's inputs against its plain
+    version, on the baked strip and on the default strip (the same
+    coordinates: both strips are 256 wide)."""
+    import torch
+    baked_env = app.environment
+    frames = {}
+    for label, env in (("baked", baked_env), ("default", default_env)):
+        app.environment = env
+        app.reset_history()
+        frames[label] = app.render_frame(FRAME_TIME, 0.0).clone()
+    app.environment = baked_env
+    changed = backbuffer_diff(frames["baked"], frames["default"], levels=0)
+    log(f"baked_env: the baked environment's frame differs from the "
+        f"default environment's in {changed} pixels "
+        f"({changed / (WIDTH * HEIGHT):.4f})")
+    check(changed >= int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1,
+          f"the baked environment changes {changed} pixels")
+    planes, cov, _b2 = b2_case(app, params, WIDTH, HEIGHT)
+    surf = surface(app, planes, cov)
+    for env, label in ((baked_env, "baked strip"),
+                       (default_env, "default strip, baked_env's inputs")):
+        add_case(results, "B3", b3_case(
+            f"environment f32 C=4 {label} {WIDTH}x{HEIGHT}",
+            b3_env_args(app, params, surf, env.strips)))
+    del planes, cov, surf
+    torch.cuda.empty_cache()
+
+
+def run_tool(main, argv: list) -> tuple[int, str, float]:
+    """A tool's main(argv) with its standard output captured, the card
+    idle at both ends; -> (exit code, output, seconds)."""
+    import contextlib
+    import io
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.monotonic() - t
+
+
+def tool_json(text: str) -> dict:
+    """The JSON object a tool prints last (after its plain lines)."""
+    return json.loads(text[text.index("{"):])
+
+
+def tools_path(directory: str) -> tuple[dict, dict]:
+    """Phase tools, its launches counted from 0: the port's tools through
+    their entry points on the card (see the module docstring).  -> (its
+    launches, its numbers for the kernels line)."""
+    import numpy as np
+    from golden_utils import psnr
+    from streaming_fixtures import write_textured_scene
+    from granite_tpu_torch import native as TN
+    from granite_tpu_torch.app.bench_scene import build_bench_scene
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.scene.gltf import GLTFParser
+    from granite_tpu_torch.tools import (
+        aa_bench, brdf_lut_generate, gltf_repacker, hw_verify,
+        quality_receipt, sweep_scene,
+    )
+    from granite_tpu_torch.utils.image_io import load_image
+    K.reset_launch_counts()
+    out: dict = {}
+
+    # brdf_lut_generate at its defaults on the card; the integration at
+    # BRDF_CHECK_SIZE on both devices
+    lut_path = os.path.join(directory, "brdf.npy")
+    rc, _text, s = run_tool(brdf_lut_generate.main,
+                            ["--output", lut_path, "--device", "cuda"])
+    lut = np.load(lut_path)
+    check(rc == 0 and lut.shape == (256, 256, 2)
+          and bool(np.isfinite(lut).all()), "brdf_lut_generate failed")
+    err = float(np.abs(
+        brdf_lut_generate.integrate_brdf(BRDF_CHECK_SIZE, 512, "cuda")
+        - brdf_lut_generate.integrate_brdf(BRDF_CHECK_SIZE, 512, "cpu"))
+        .max())
+    out["brdf_lut"] = dict(seconds=s, size=256, samples=512,
+                           max_abs_err_vs_cpu=err)
+    log(f"tools: brdf_lut_generate 256^2 x 512 samples on the card "
+        f"{s:.3f} s; at {BRDF_CHECK_SIZE}^2 card vs CPU max abs err "
+        f"{err:.3g}; LUT range [{lut.min():.4f}, {lut.max():.4f}]")
+    check(err <= BRDF_GATE, f"brdf LUT card vs CPU {err}")
+
+    # hw_verify at the bench resolution (its B2 count is the card's)
+    hw_dir = os.path.join(directory, "hw_verify")
+    rc, _text, s = run_tool(hw_verify.main, [
+        "--width", str(WIDTH), "--height", str(HEIGHT), "--out", hw_dir,
+        "--device", "cuda"])
+    with open(os.path.join(hw_dir, "hw_verify.json")) as f:
+        report = json.load(f)
+    log(f"tools: hw_verify {WIDTH}x{HEIGHT} exit {rc} in {s:.1f} s; "
+        "report:")
+    log(json.dumps(report))
+    check(rc == 0 and report["ok"], f"hw_verify failed: "
+          f"{report['failures']}")
+    check(report["chain_b2_launches"] == report["chain_frames"],
+          f"hw_verify's chain launched B2 {report['chain_b2_launches']} "
+          "times")
+    out["hw_verify"] = dict(seconds=s, **{
+        k: report[k] for k in ("plane_means", "black_tiles", "chain_frames",
+                               "chain_graph_executes", "chain_b2_launches",
+                               "ok")})
+
+    # quality_receipt at the bench resolution
+    rc, text, s = run_tool(quality_receipt.main, [
+        "--width", str(WIDTH), "--height", str(HEIGHT), "--out",
+        os.path.join(directory, "quality"), "--device", "cuda"])
+    receipt = json.loads(text.strip().splitlines()[-1])
+    check(rc == 0, f"quality_receipt exited {rc}")
+    out["quality_receipt"] = dict(seconds=s, **receipt)
+    log(f"tools: quality_receipt {WIDTH}x{HEIGHT} in {s:.1f} s: {receipt}")
+
+    # aa_bench at its defaults but AA_MODES (a viewer process a mode)
+    aa_dir = os.path.join(directory, "aa")
+    rc, text, s = run_tool(aa_bench.main, ["--modes", *AA_MODES, "--outdir",
+                                           aa_dir, "--device", "cuda"])
+    aa = tool_json(text)
+    check(rc == 0, f"aa_bench exited {rc}")
+    for mode in aa:
+        ok, means = image_gate(load_image(os.path.join(aa_dir,
+                                                       f"{mode}.png")))
+        check(ok, f"aa_bench {mode}: image gate failed, means {means}")
+    out["aa_bench"] = dict(seconds=s, modes={
+        m: dict(us=r["averageFrameTimeUs"], psnr_luma=r.get("psnrLuma"))
+        for m, r in aa.items()})
+    log(f"tools: aa_bench 640x360 x 16 chained frames, {len(aa)} modes in "
+        f"{s:.1f} s: {out['aa_bench']['modes']}")
+
+    # sweep_scene with the bench config at its defaults
+    cfg = os.path.join(directory, "bench.json")
+    with open(cfg, "w") as f:
+        json.dump(BENCH_CONFIG, f)
+    rc, text, s = run_tool(sweep_scene.main, [
+        "--configs", cfg, "--iterations", str(SWEEP_ITERATIONS),
+        "--device", "cuda"])
+    sweep = tool_json(text)[cfg]
+    check(rc == 0, f"sweep_scene exited {rc}")
+    out["sweep_scene"] = dict(seconds=s, **sweep)
+    log(f"tools: sweep_scene bench config 1280x720 x 32 frames, "
+        f"{SWEEP_ITERATIONS} iterations in {s:.1f} s: {sweep}")
+
+    # gltf_repacker on the streaming path's glTF bench scene (its images
+    # without the .gtpx sidecars, which the repacker does not read)
+    src_dir, rep_dir = (os.path.join(directory, d) for d in ("src", "rep"))
+    os.makedirs(src_dir)
+    os.makedirs(rep_dir)
+    src = write_textured_scene(build_bench_scene(), src_dir, "bench.gltf",
+                               STREAM_IMAGE, STREAM_SEED,
+                               sidecars=False)["path"]
+    rep = os.path.join(rep_dir, "bench.gltf")
+    rc, text, s = run_tool(gltf_repacker.main, [
+        "--input", src, "--output", rep, "--meshlets",
+        "--compress-textures"])
+    check(rc == 0, f"gltf_repacker exited {rc}")
+    lines = text.splitlines()
+    vertices = lines[0]
+    meshlets = sum(int(line.split()[1]) for line in lines
+                   if line.strip().startswith("mesh"))
+    textures = sum(1 for line in lines if line.strip().startswith("tex"))
+    # every mesh of the repacked file through MLT1 and back: each decoded
+    # triangle is its source triangle, within a 16-bit step of the extent
+    decoded, worst = 0, 0.0
+    for md in GLTFParser(rep).get_scene().meshes:
+        blob, n = TN.meshlet_encode(md.positions, md.indices)
+        pos, idx = TN.meshlet_decode(blob, n, 3 * len(md.indices),
+                                     len(md.indices))
+        step = (md.positions.max(0) - md.positions.min(0)) / 65535.0
+        d = np.abs(md.positions[md.indices] - pos[idx])
+        check(idx.shape == md.indices.shape and bool((d <= step + 1e-6)
+                                                     .all()),
+              "an MLT1 decode is off its input by more than a step")
+        worst = max(worst, float((d / np.maximum(step, 1e-30)).max()))
+        decoded += n
+    check(decoded == meshlets, f"MLT1 meshlets {decoded} != the tool's "
+          f"{meshlets}")
+    frames = {}
+    for label, path in (("source", src), ("repacked", rep)):
+        app = make_app(BENCH_CONFIG, False, "cuda", scene=path)
+        app.swapchain_updated(WIDTH, HEIGHT)
+        frames[label] = app.render_frame(FRAME_TIME, 0.0).cpu().numpy()
+        del app
+        ok, means = image_gate(frames[label])
+        check(ok, f"the {label} glTF frame fails the image gate: {means}")
+    p = float(psnr(frames["repacked"], frames["source"]))
+    out["gltf_repacker"] = dict(seconds=s, vertices=vertices,
+                                meshlets=meshlets, textures=textures,
+                                decode_max_steps=worst, psnr_vs_source=p)
+    log(f"tools: gltf_repacker --meshlets --compress-textures on the bench "
+        f"glTF ({STREAM_IMAGE}^2 images) in {s:.1f} s: {vertices}; "
+        f"{meshlets} MLT1 meshlets (decoded within {worst:.3f} of a step); "
+        f"{textures} .gtpx; the repacked scene's {WIDTH}x{HEIGHT} frame vs "
+        f"the source's: luma PSNR {p:.2f} dB")
+    launches = dict(K.LAUNCHES)
+    log(f"launches tools {launches}")
+    return launches, out
 
 
 def cross_device() -> None:
@@ -2234,6 +2563,11 @@ def main() -> int:
     by_path["video_player"] = video_player_path(seq)
     log(f"phase 3 path video_player took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
+    tools_dir = tempfile.TemporaryDirectory()
+    by_path["tools"], tools = tools_path(tools_dir.name)
+    tools_dir.cleanup()
+    log(f"phase tools took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     cross_device()
     streaming_cross_device()
     triangle = triangle_demo()
@@ -2259,7 +2593,7 @@ def main() -> int:
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
         "compile_probe": probe_result, "triangle_demo": triangle,
-        "kernels": kernels}))
+        "tools": tools, "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -830,6 +830,13 @@ class SceneViewerApplication(Application):
         self._param_cache = None
         self._orbit_cache = None
 
+    def reset_history(self) -> None:
+        """Re-clear the carried history resources (TAA feedback, exposure
+        adaptation, occlusion visibility) to their frame-0 state: the
+        like-for-like start of a sequential and a chained run
+        (tools/hw_verify.py)."""
+        self._history = self.graph.initial_history(self.device)
+
     def _add_surface_outputs(self, p, rel) -> None:
         """Under TAA the surface pass (gbuffer or forward) reads last
         frame's node transforms and writes motion vectors; under

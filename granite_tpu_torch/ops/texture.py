@@ -150,7 +150,29 @@ def _upsample2_centers_np(img, wrap: int):
 def build_packed_lod_strip_np(img, wrap: int = WRAP_REPEAT,
                               dtype="float16"):
     """(S, S, C) -> (HS-1, S, 5C) LOD strip [t00 t10 t01 t11 | parent]."""
-    levels = _box_mip_levels_np(img)
+    return _pack_lod_levels_np(_box_mip_levels_np(img), wrap, dtype)
+
+
+def build_packed_lod_strip_from_levels_np(levels, wrap: int = WRAP_REPEAT,
+                                          dtype="float32"):
+    """Explicit per-level images (e.g. a GGX-prefiltered chain) -> the
+    (HS-1, S, 5C) LOD strip of build_packed_lod_strip_np; levels past
+    the given list are box-filtered continuations of its last."""
+    s = levels[0].shape[0]
+    C = levels[0].shape[-1]
+    L = num_mip_levels(s, s)
+    full = [np.asarray(lv, np.float32) for lv in levels]
+    cur = full[-1]
+    while len(full) < L:
+        n2 = max(cur.shape[0] // 2, 1)
+        if cur.shape[0] > 1:
+            cur = cur[:n2 * 2, :n2 * 2].reshape(
+                n2, 2, n2, 2, C).mean(axis=(1, 3))
+        full.append(cur)
+    return _pack_lod_levels_np(full, wrap, dtype)
+
+
+def _pack_lod_levels_np(levels, wrap: int, dtype):
     parents = [(_upsample2_centers_np(levels[l + 1], wrap)
                 if l + 1 < len(levels) else levels[l])
                for l in range(len(levels))]

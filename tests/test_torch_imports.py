@@ -42,8 +42,9 @@ def test_port_imports_without_jax():
     # the compile probe, the UI and event copies, the triangle demo and
     # texture streaming's modules (the OS-service copies, the texture
     # codec, the streamer, the debug graph), the video player and its
-    # source, input, the renderer suite, hashing, the frame ring and the
-    # scene-export texture utils and TMX parser are among them
+    # source, input, the renderer suite, hashing, the frame ring, the
+    # scene-export texture utils and TMX parser, and the tools (the
+    # MLT1 codec's loader in native) are among them
     assert {f"granite_tpu_torch.{m}" for m in (
         "core.stats", "native", "ops.decals", "ops.fft", "ops.ocean",
         "renderer.ground", "renderer.ocean", "scene.gltf",
@@ -60,7 +61,14 @@ def test_port_imports_without_jax():
         "native.texture", "assets.streaming", "graph.debug",
         "app.video_player", "app.video_source", "app.input",
         "renderer.suite", "utils.hashing", "core.device",
-        "scene_export.texture_utils", "scene_export.tmx_parser")} \
+        "scene_export.texture_utils", "scene_export.tmx_parser",
+        "renderer.environment", "tools.image_compare", "tools.gtx_cat",
+        "tools.texture_viewer", "tools.image_packer",
+        "tools.brdf_lut_generate", "tools.obj_to_gltf",
+        "tools.bitmap_to_mesh", "tools.gltf_repacker",
+        "tools.convert_equirect_to_environment",
+        "tools.convert_cube_to_environment", "tools.sweep_scene",
+        "tools.aa_bench", "tools.quality_receipt", "tools.hw_verify")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
