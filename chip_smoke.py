@@ -220,6 +220,24 @@
    seconds; every repacked mesh through MLT1 and back within a 16-bit
    step of its extent; the repacked file's frame and the source's at
    1920x1080 through the image gate, their luma PSNR printed.
+   Phase host_subsystems, its launches counted from 0 (all must stay 0:
+   these modules hold no tensor), on the card machine's host: physics
+   (the two-box stack and a sphere dropped on the plane, PHYSICS_S of
+   1/300 s ticks: the stack stands, the sphere rests, the sphere-floor,
+   box-floor and box-box CollisionEvents fire; ms a tick); audio (every
+   one of the mixer's 128 slots: 127 seeded SineStreams and one
+   WavStream, AUDIO_S at 48 kHz in 256-frame blocks through
+   WavFileBackend: the file's length, its loudness, the WAV's
+   stream_stopped message, a full mixer's -1; ms a block against the
+   block's 5.33 ms of audio); netfs (a NetfsServer over a MemoryBackend
+   with one NETFS_BLOB_BYTES blob, the size of the streaming path's strip
+   row, and small files, read back byte-equal through NetfsBackend
+   mounted in the port's Filesystem; MB/s); pyro (the TCP and UDP
+   handshake between the port's PyroServer and PyroClient, then
+   PYRO_FRAMES frames of the deferred path's 1920x1080 RGBA8 backbuffer,
+   each rolled by its index, through send_frame with PYRO_FEC stripes and
+   one data subpacket dropped a frame (the first, the tail, then seeded),
+   each reassembled byte-equal with the drop recovered; ms a frame).
 4. Cross-device checks at 128x72 on the card and on the CPU (plain
    versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
    forward_shadow, deferred_smaa, forward_vsm_fxaa, deferred_taa_fog,
@@ -250,7 +268,8 @@ The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
 1080p bench-shape case, the other cases under "cases", max_abs_err over
 every case of the kernel, launches summed over the main paths and per
 path, the compiler's attributes; the tools phase's numbers under
-"tools"), the card, then the result.
+"tools", the host subsystems' under "host_subsystems"), the card, then
+the result.
 """
 
 from __future__ import annotations
@@ -335,6 +354,16 @@ BAKE_SIZE, BAKE_SAMPLES, BAKE_REL_GATE = 256, 64, 1e-4
 BRDF_CHECK_SIZE, BRDF_GATE = 64, 1e-6
 SWEEP_ITERATIONS = 2
 AA_MODES = ("none", "fxaa", "taa", "taaFSR2")
+# The host_subsystems phase: simulated seconds (1/60 s iterates of 1/300 s
+# ticks); the mix's seconds, rate and block, the WAV stream's seconds;
+# the netfs blob (the streaming path's 60.5 MiB strip row); pyro's frames,
+# (xor_blocks_even, xor_blocks_odd), and the datagrams in flight before
+# the client drains its socket (loopback UDP drops what overflows it).
+PHYSICS_S, PHYSICS_STEP = 1.0, 1.0 / 60.0
+AUDIO_S, AUDIO_RATE, AUDIO_BLOCK, AUDIO_WAV_S = 2.0, 48000, 256, 1.0
+NETFS_BLOB_BYTES, NETFS_READS = int(60.5 * 2 ** 20), 3
+PYRO_FRAMES, PYRO_FEC, PYRO_BATCH = 8, (4, 4), 64
+HOST_SEED = 41
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -1793,11 +1822,12 @@ def stream_frames(app, n: int):
     return out
 
 
-def main_path(name: str, results: dict) -> dict:
+def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     """One bench frame path through the kernels; returns its launches
     (gltf_animated, cascades, msaa and streaming add their cases to
-    results).  The streaming path renders its frames through
-    stream_frames, the others through chained_frames."""
+    results; deferred keeps its last backbuffer in backbuffers).  The
+    streaming path renders its frames through stream_frames, the others
+    through chained_frames."""
     import numpy as np
     import torch
     from granite_tpu_torch.kernels import build as K
@@ -1883,6 +1913,8 @@ def main_path(name: str, results: dict) -> dict:
     b1_frames = [f["B1"] for f in frames]
     busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES, run)
     img = out.cpu().numpy()
+    if name == "deferred":
+        backbuffers[name] = img     # the host_subsystems phase's pyro frames
     ok, means = image_gate(img)
     stats = app.frame_stats()
     # Under TAA render_frames_chained ignores camera_orbit, as the
@@ -2496,6 +2528,278 @@ def tools_path(directory: str) -> tuple[dict, dict]:
     return launches, out
 
 
+def host_physics() -> dict:
+    """The two-box stack and a sphere dropped on the plane for PHYSICS_S,
+    through the port's PhysicsSystem on the port's Scene."""
+    import numpy as np
+    from granite_tpu_torch.event.manager import EventManager
+    from granite_tpu_torch.physics import (
+        CollisionEvent, InteractionType, MaterialInfo, PhysicsSystem,
+    )
+    from granite_tpu_torch.scene.scene import Scene
+    EventManager.reset()
+    events, ticks = [], []
+    EventManager.get().register_handler(CollisionEvent, events.append)
+    world = PhysicsSystem()
+    world.tick_callback = ticks.append
+    scene = Scene()
+    world.set_scene(scene)
+    floor = world.add_infinite_plane(
+        [0.0, 1.0, 0.0, 0.0],
+        MaterialInfo(type=InteractionType.Static, friction=0.8))
+    boxes = [world.add_cube(scene.create_node(translation=t,
+                                              scale=[0.5] * 3),
+                            MaterialInfo(mass=1.0, restitution=0.0,
+                                         friction=0.9))
+             for t in ([0.0, 0.5, 0.0], [0.05, 1.55, 0.0])]
+    ball = world.add_sphere(scene.create_node(translation=[4.0, 1.6, 0.0]),
+                            MaterialInfo(mass=1.0, restitution=0.0))
+    t = time.monotonic()
+    for _ in range(round(PHYSICS_S / PHYSICS_STEP)):
+        world.iterate(PHYSICS_STEP)
+        EventManager.get().dispatch()
+    secs = time.monotonic() - t
+    EventManager.reset()
+    b0, b1, bs = (world._bodies[h.index] for h in (*boxes, ball))
+    pairs = {frozenset((e.get_first_handle().index,
+                        e.get_second_handle().index)) for e in events}
+    out = dict(ticks=len(ticks), ms_a_tick=secs * 1e3 / len(ticks),
+               seconds=secs, events=len(events),
+               box_y=[float(b0.pos[1]), float(b1.pos[1])],
+               sphere_y=float(bs.pos[1]),
+               speeds=[float(np.linalg.norm(b.linvel)) for b in (b0, b1, bs)])
+    log(f"host physics: {out['ticks']} ticks of 1/300 s in {secs:.3f} s, "
+        f"{out['ms_a_tick']:.3f} ms a tick; boxes at y {out['box_y']}, "
+        f"sphere at y {out['sphere_y']:.4f}, speeds {out['speeds']}; "
+        f"{len(events)} CollisionEvents")
+    check(abs(len(ticks) - round(PHYSICS_S * 300)) <= 1,
+          f"physics ran {len(ticks)} ticks")
+    check(abs(b0.pos[1] - 0.5) < 0.1 and 1.2 < b1.pos[1] < 1.8
+          and max(out["speeds"][:2]) < 0.3, "the box stack fell")
+    check(abs(bs.pos[1] - 1.0) < 0.05 and out["speeds"][2] < 0.1,
+          "the sphere does not rest on the plane")
+    want = {frozenset((floor.index, ball.index)),
+            frozenset((floor.index, boxes[0].index)),
+            frozenset((boxes[0].index, boxes[1].index))}
+    check(want <= pairs, f"CollisionEvent pairs {pairs} lack {want - pairs}")
+    return out
+
+
+def host_audio(directory: str) -> dict:
+    """Every mixer slot busy: 127 seeded sines and one WAV stream, mixed
+    through WavFileBackend for AUDIO_S."""
+    import wave
+    import numpy as np
+    from granite_tpu_torch.audio import (
+        Mixer, SineStream, WavFileBackend, WavStream,
+    )
+    from granite_tpu_torch.audio.mixer import MAX_SOURCES
+    rng = np.random.default_rng(HOST_SEED)
+    src, dst = (os.path.join(directory, f) for f in ("src.wav", "mix.wav"))
+    n = int(AUDIO_WAV_S * 44100)
+    tone = 0.5 * np.sin(2 * np.pi * 220.0 * np.arange(n) / 44100.0)
+    pcm = np.stack([tone, rng.uniform(-0.2, 0.2, n)], 1) * 32767
+    with wave.open(src, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes(pcm.astype(np.int16).tobytes())
+    m = Mixer()
+    be = WavFileBackend(dst, m, sample_rate=float(AUDIO_RATE),
+                        block_frames=AUDIO_BLOCK)
+    ids = [m.add_mixer_stream(SineStream(float(rng.uniform(40, 8000))),
+                              initial_gain_db=float(rng.uniform(-48, -36)),
+                              initial_panning=float(rng.uniform(-1, 1)))
+           for _ in range(MAX_SOURCES - 1)]
+    wav_id = m.add_mixer_stream(WavStream(src), initial_gain_db=-6.0)
+    full = m.add_mixer_stream(SineStream(1.0))
+    check(min(ids + [wav_id]) >= 0 and full == -1,
+          f"mixer slots: a stream refused, or a {MAX_SOURCES + 1}th taken")
+    frames = int(AUDIO_S * AUDIO_RATE)
+    blocks = -(-frames // AUDIO_BLOCK)
+    t = time.monotonic()
+    be.render(AUDIO_S)
+    secs = time.monotonic() - t
+    messages = []
+    q = m.get_message_queue()
+    while not q.empty():
+        messages.append(q.get_nowait())
+    with wave.open(dst, "rb") as w:
+        shape = (w.getnframes(), w.getnchannels(), w.getsampwidth(),
+                 w.getframerate())
+        mix = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    rms = float(np.sqrt(np.mean(mix.astype(np.float64) ** 2)) / 32768.0)
+    out = dict(streams=MAX_SOURCES, blocks=blocks, seconds=secs,
+               ms_a_block=secs * 1e3 / blocks,
+               audio_ms_a_block=AUDIO_BLOCK * 1e3 / AUDIO_RATE, rms=rms,
+               messages=[list(x) for x in messages])
+    log(f"host audio: {MAX_SOURCES} streams, {blocks} blocks of "
+        f"{AUDIO_BLOCK} frames in {secs:.3f} s: {out['ms_a_block']:.3f} ms "
+        f"a block against {out['audio_ms_a_block']:.3f} ms of audio; file "
+        f"{shape}, rms {rms:.4f}; messages {messages}")
+    check(shape == (frames, 2, 2, AUDIO_RATE), f"mix file {shape}")
+    check(rms > 0.01, f"the mix is silent (rms {rms})")
+    check(messages == [("stream_stopped", wav_id)],
+          f"stream_stopped messages {messages}, want the WAV's {wav_id}")
+    return out
+
+
+def host_netfs() -> dict:
+    """A NETFS_BLOB_BYTES blob and small files through NetfsServer and
+    NetfsBackend mounted in the port's Filesystem, on loopback."""
+    import numpy as np
+    from granite_tpu_torch.filesystem.vfs import Filesystem, MemoryBackend
+    from granite_tpu_torch.network import NetfsBackend, NetfsServer
+    rng = np.random.default_rng(HOST_SEED)
+    blob = rng.bytes(NETFS_BLOB_BYTES)
+    files = {"strips/row0.bin": blob, "scene/info.json": b'{"rows": 1}',
+             "scene/table.bin": rng.bytes(4096)}
+    store = MemoryBackend(files)
+    srv = NetfsServer(store)
+    srv.start()
+    try:
+        fs = Filesystem()
+        fs.register_protocol("netfs", NetfsBackend("127.0.0.1", srv.port))
+        for path, data in files.items():
+            if len(data) < 1 << 20:
+                check(fs.read_file("netfs://" + path) == data,
+                      f"netfs read of {path} differs")
+        check(fs.list_dir("netfs://scene") == ["info.json", "table.bin"]
+              and fs.stat("netfs://strips/row0.bin")["size"] == len(blob),
+              "netfs list or stat differs")
+        check(fs.write_file("netfs://scene/new.bin", b"\1\2")
+              and store.files["scene/new.bin"] == b"\1\2",
+              "netfs write lost")
+        rates = []
+        for _ in range(NETFS_READS):
+            t = time.monotonic()
+            got = fs.read_file("netfs://strips/row0.bin")
+            rates.append(len(blob) / (time.monotonic() - t) / 1e6)
+            check(got == blob, "the netfs blob came back different")
+            del got
+    finally:
+        srv.stop()
+    out = dict(bytes=len(blob), mb_per_s=rates,
+               median_mb_per_s=float(np.median(rates)))
+    log(f"host netfs: {len(blob)} bytes read back byte-equal "
+        f"{NETFS_READS} times at {[round(r, 1) for r in rates]} MB/s")
+    return out
+
+
+class LossyLink:
+    """Stands in for the pyro server's UDP socket: sendto drops the
+    datagram numbered `drop` of the frame being sent and, every PYRO_BATCH
+    datagrams, lets the client receive them into its Reassembler (loopback
+    UDP loses only what overflows the receive buffer)."""
+
+    def __init__(self, sock, client, datagram_bytes: int):
+        self.sock, self.client = sock, client
+        self.datagram_bytes = datagram_bytes
+        self.index, self.drop, self.in_flight = 0, -1, 0
+
+    def sendto(self, datagram: bytes, addr) -> int:
+        self.index += 1
+        if self.index - 1 != self.drop:
+            self.sock.sendto(datagram, addr)
+            self.in_flight += 1
+            if self.in_flight == PYRO_BATCH:
+                self.drain()
+        return len(datagram)
+
+    def drain(self) -> None:
+        while self.in_flight:
+            data, _ = self.client._udp.recvfrom(self.datagram_bytes)
+            check(self.client.reassembler.feed(data) is None,
+                  "pyro: a frame completed before its send ended")
+            self.in_flight -= 1
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def host_pyro(frame) -> dict:
+    """The port's PyroServer and PyroClient: the handshake, then
+    PYRO_FRAMES frames of the deferred backbuffer with FEC and one data
+    subpacket dropped a frame."""
+    import numpy as np
+    from granite_tpu_torch.video.pyro import (
+        PYRO_MAX_PAYLOAD_SIZE, VIDEO_CODEC_PYROWAVE, CodecParameters,
+        PayloadHeader, PyroClient, PyroServer,
+    )
+    h, w = frame.shape[:2]
+    codec = CodecParameters(video_codec=VIDEO_CODEC_PYROWAVE, width=w,
+                            height=h, frame_rate_num=60)
+    srv = PyroServer(codec)
+    cli = None
+    try:
+        srv.serve_handshake()
+        t = time.monotonic()
+        cli = PyroClient("127.0.0.1", srv.tcp_port, srv.udp_port)
+        got = cli.handshake()
+        srv._thread.join(5.0)
+        handshake_ms = (time.monotonic() - t) * 1e3
+        check(got == codec and not srv._thread.is_alive()
+              and srv._client_addr is not None, f"pyro handshake: {got}")
+        cli._udp.settimeout(5.0)
+        link = srv._udp = LossyLink(
+            srv._udp, cli, PYRO_MAX_PAYLOAD_SIZE + PayloadHeader.SIZE)
+        rng = np.random.default_rng(HOST_SEED)
+        ms, drops = [], []
+        for k in range(PYRO_FRAMES):
+            data = np.roll(frame, k * (h // PYRO_FRAMES), axis=0).tobytes()
+            n_data = -(-len(data) // PYRO_MAX_PAYLOAD_SIZE)
+            # the first subpacket, the short tail, then seeded ones
+            link.index = 0
+            link.drop = (0, n_data - 1)[k] if k < 2 else \
+                int(rng.integers(1, n_data - 1))
+            drops.append(link.drop)
+            t = time.monotonic()
+            srv.send_frame(data, key_frame=k == 0, pts=k * 1000,
+                           xor_blocks_even=PYRO_FEC[0],
+                           xor_blocks_odd=PYRO_FEC[1])
+            link.drain()
+            out = cli.reassembler.flush()
+            ms.append((time.monotonic() - t) * 1e3)
+            check(out == data, f"pyro frame {k} (dropped subpacket "
+                  f"{link.drop} of {n_data}) not rebuilt byte-equal")
+        r = cli.reassembler
+        check(r.total_recovered_packets == PYRO_FRAMES
+              and r.total_received_key_frames == 1,
+              f"pyro: {r.total_recovered_packets} recovered, "
+              f"{r.total_received_key_frames} key frames")
+    finally:
+        srv.close()
+        if cli is not None:
+            cli.close()
+    result = dict(frames=PYRO_FRAMES, bytes_a_frame=len(data),
+                  datagrams_a_frame=n_data + sum(PYRO_FEC),
+                  handshake_ms=handshake_ms, ms_a_frame=ms, dropped=drops,
+                  median_ms_a_frame=float(np.median(ms)))
+    log(f"host pyro: handshake {handshake_ms:.2f} ms; {PYRO_FRAMES} frames "
+        f"of {w}x{h} RGBA8 ({len(data)} bytes, {n_data} + {sum(PYRO_FEC)} "
+        f"datagrams), subpackets {drops} dropped and recovered, ms a frame "
+        f"{[round(x, 1) for x in ms]}")
+    return result
+
+
+def host_subsystems(frame) -> tuple[dict, dict]:
+    """Phase host_subsystems (see the module docstring); -> (its launches,
+    counted from 0 and all 0, its numbers)."""
+    from granite_tpu_torch.kernels import build as K
+    K.reset_launch_counts()
+    files = tempfile.TemporaryDirectory()
+    try:
+        out = {"physics": host_physics(), "audio": host_audio(files.name),
+               "netfs": host_netfs(), "pyro": host_pyro(frame)}
+    finally:
+        files.cleanup()
+    launches = dict(K.LAUNCHES)
+    log(f"launches host_subsystems {launches}")
+    check(not any(launches.values()),
+          f"the host subsystems launched kernels: {launches}")
+    return launches, out
+
+
 def cross_device() -> None:
     import numpy as np
     import torch
@@ -2550,9 +2854,10 @@ def main() -> int:
     slice_kernel_phases(results)
     log(f"phases 1-2 took {time.monotonic() - t_start:.1f} s")
     by_path = {"compile_probe": probe_launches}
+    backbuffers: dict = {}
     for name in MAIN_PATHS:
         t = time.monotonic()
-        by_path[name] = main_path(name, results)
+        by_path[name] = main_path(name, results, backbuffers)
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     video = tempfile.TemporaryDirectory()
@@ -2567,6 +2872,10 @@ def main() -> int:
     by_path["tools"], tools = tools_path(tools_dir.name)
     tools_dir.cleanup()
     log(f"phase tools took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    by_path["host_subsystems"], host = host_subsystems(
+        backbuffers.pop("deferred"))
+    log(f"phase host_subsystems took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     cross_device()
     streaming_cross_device()
@@ -2593,7 +2902,7 @@ def main() -> int:
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
         "compile_probe": probe_result, "triangle_demo": triangle,
-        "tools": tools, "kernels": kernels}))
+        "tools": tools, "host_subsystems": host, "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

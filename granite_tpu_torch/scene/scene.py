@@ -11,10 +11,16 @@ system.  Volumetric decals are unit boxes on nodes
 (create_volumetric_decal, gather_visible_volumetric_decals), and so are
 volumetric fog regions (create_volumetric_fog_region, with an optional
 density grid) and diffuse GI volumes (create_volumetric_diffuse_light,
-with their probe resolution).  The original's ECS entity pool is left
-out: no path of the port reads it, so a decal's entity is its
-VolumetricDecalComponent alone and the regions and volumes have none.  tests/test_torch_host_copies.py holds
-this copy equal to the original.
+with their probe resolution).  Like the original, the Scene is built on
+an ECS EntityPool (scene/ecs.py): every node, renderable, decal, fog
+region and diffuse volume is an entity whose components carry its row
+indices (TransformComponent, RenderableComponent + BoundedComponent and
+the queue tags, VolumetricDecalComponent,
+VolumetricDiffuseLightComponent), so EntityGroup queries work against
+the scene; no frame query reads the pool.  add_renderable returns the
+row (the original wraps it in a RenderableHandle).
+tests/test_torch_host_copies.py and tests/test_torch_ecs.py hold this
+copy equal to the original.
 """
 
 from __future__ import annotations
@@ -24,6 +30,61 @@ import numpy as np
 from ..math.aabb import transform_aabbs
 from ..math.frustum import frustum_cull
 from ..math.transforms import compose_trs_batch
+from .ecs import EntityPool
+
+# -- scene component types (the reference's ecs component classes backing
+# renderer/scene.hpp:113: RenderInfoComponent, RenderableComponent,
+# OpaqueComponent/TransparentComponent/CastsStaticShadowComponent tag
+# types, ecs.hpp:130/209).  Hot per-frame data stays in the Scene SoA;
+# these components carry IDENTITY (row indices) so EntityGroup queries
+# work against the real scene.
+
+
+class TransformComponent:
+    __slots__ = ("node",)
+
+    def __init__(self, node: int):
+        self.node = node
+
+
+class RenderableComponent:
+    __slots__ = ("row", "mesh")
+
+    def __init__(self, row: int, mesh: int):
+        self.row = row
+        self.mesh = mesh
+
+
+class BoundedComponent:
+    __slots__ = ("row",)
+
+    def __init__(self, row: int):
+        self.row = row
+
+
+class OpaqueComponent:
+    __slots__ = ()
+
+
+class TransparentComponent:
+    __slots__ = ()
+
+
+class CastsShadowComponent:
+    __slots__ = ()
+
+
+class DynamicComponent:
+    __slots__ = ()
+
+
+class VolumetricDiffuseLightComponent:
+    """render_components.hpp VolumetricDiffuseLightComponent: a probe
+    grid volume over the node's unit box."""
+
+    def __init__(self, index: int):
+        self.index = index
+
 
 class VolumetricDecalComponent:
     """renderer/render_components.hpp VolumetricDecalComponent: the
@@ -63,6 +124,12 @@ class Scene:
         self.r_world_max = np.zeros((0, 3), np.float32)
         # Morph-target weights per node (sparse: only morphing nodes).
         self.node_morph_weights: dict[int, np.ndarray] = {}
+        # ECS substrate: entities/groups back scene identity (the
+        # reference's Scene is built ON the ecs EntityPool; here the
+        # pool indexes into the SoA rows above).
+        self.entity_pool = EntityPool()
+        self.node_entity: list = []
+        self.renderable_entity: list = []
         # Volumetric decals (scene.cpp:1059 create_volumetric_decal):
         # each is a unit box [-0.5, 0.5]^3 on a node, with a texture id
         # resolved by the app's decal strip array.
@@ -73,11 +140,13 @@ class Scene:
         # diffuse_light): (node, (X, Y, Z) probe resolution).
         self.diffuse_volume_node: list[int] = []
         self.diffuse_volume_res: list[tuple] = []
+        self.diffuse_volume_entity: list = []
         # Volumetric fog regions (scene.cpp create_volumetric_fog_region,
         # lights/volumetric_fog_region.hpp): unit boxes with an optional
         # (D, H, W) density grid.
         self.fog_region_node: list[int] = []
         self.fog_region_volume: list = []
+        self.fog_region_entity: list = []
 
     # -- node management --------------------------------------------------------
     def _grow_nodes(self) -> None:
@@ -112,6 +181,9 @@ class Scene:
             np.asarray(scale, np.float32)
         self.world[idx] = np.eye(4, dtype=np.float32)
         self._levels_dirty = True
+        e = self.entity_pool.create_entity()
+        e.allocate_component(TransformComponent, idx)
+        self.node_entity.append(e)
         return idx
 
     def set_parent(self, node: int, parent: int) -> None:
@@ -201,6 +273,18 @@ class Scene:
         self.r_aabb_max = self._r_amax_buf[:m]
         self.r_world_min = self._r_wmin_buf[:m]
         self.r_world_max = self._r_wmax_buf[:m]
+        e = self.entity_pool.create_entity()
+        e.allocate_component(RenderableComponent, n, mesh)
+        e.allocate_component(BoundedComponent, n)
+        if flags & RENDERABLE_OPAQUE:
+            e.allocate_component(OpaqueComponent)
+        if flags & RENDERABLE_TRANSPARENT:
+            e.allocate_component(TransparentComponent)
+        if flags & RENDERABLE_CASTS_SHADOW:
+            e.allocate_component(CastsShadowComponent)
+        if flags & RENDERABLE_DYNAMIC:
+            e.allocate_component(DynamicComponent)
+        self.renderable_entity.append(e)
         return n
 
     # -- volumetric decals (scene.cpp:1059, scene.cpp:400) -----------------------
@@ -212,7 +296,10 @@ class Scene:
         idx = len(self.decal_node)
         self.decal_node.append(node)
         self.decal_tex.append(tex_id)
-        self.decal_entity.append(VolumetricDecalComponent(idx))
+        e = self.entity_pool.create_entity()
+        e.allocate_component(VolumetricDecalComponent, idx)
+        e.allocate_component(TransformComponent, node)
+        self.decal_entity.append(e)
         return idx
 
     def create_volumetric_fog_region(self, node: int,
@@ -224,6 +311,9 @@ class Scene:
         idx = len(self.fog_region_node)
         self.fog_region_node.append(node)
         self.fog_region_volume.append(density_volume)
+        e = self.entity_pool.create_entity()
+        e.allocate_component(TransformComponent, node)
+        self.fog_region_entity.append(e)
         return idx
 
     def create_volumetric_diffuse_light(self, resolution, node: int) -> int:
@@ -234,6 +324,10 @@ class Scene:
         idx = len(self.diffuse_volume_node)
         self.diffuse_volume_node.append(node)
         self.diffuse_volume_res.append(tuple(int(r) for r in resolution))
+        e = self.entity_pool.create_entity()
+        e.allocate_component(VolumetricDiffuseLightComponent, idx)
+        e.allocate_component(TransformComponent, node)
+        self.diffuse_volume_entity.append(e)
         return idx
 
     def gather_visible_volumetric_decals(self, frustum) -> np.ndarray:

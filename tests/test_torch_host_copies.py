@@ -44,6 +44,7 @@ from granite_tpu_torch.math.transforms import decompose_trs
 from granite_tpu_torch.scene_export import camera_export as TCE
 from granite_tpu_torch.utils import image_compare as TIC
 from granite_tpu_torch.utils.timer import FrameTimer
+from test_torch_ecs import scene_entities
 
 RNG_SEED = 4
 
@@ -390,6 +391,9 @@ def test_scene_transforms_and_gathers():
         sc.update_transform_tree()
     _eq(a.world[:90], b.world[:90])
     assert a.node_morph_weights == b.node_morph_weights == {}
+    # the entity half: an entity a node, then one a renderable
+    assert scene_entities(a) == scene_entities(b)
+    assert len(a.entity_pool) == 90 + 70
 
 
 def test_scene_volumetric_decals():
@@ -411,9 +415,11 @@ def test_scene_volumetric_decals():
         sc.update_transform_tree()
     a, b = scenes
     assert a.decal_node == b.decal_node and a.decal_tex == b.decal_tex
-    assert [e.index for e in a.decal_entity] == list(range(16))
-    assert all(isinstance(e, TS.VolumetricDecalComponent)
-               for e in a.decal_entity)
+    assert [e.get_component(TS.VolumetricDecalComponent).index
+            for e in a.decal_entity] == list(range(16))
+    assert [e.get_component(TS.TransformComponent).node
+            for e in a.decal_entity] == [int(n) for n in nodes]
+    assert scene_entities(a) == scene_entities(b)
     empty = TS.Scene(), JS.Scene()
     for _ in range(4):
         vp = (JM.perspective(1.0, 1.5, 0.1)
@@ -450,6 +456,9 @@ def test_scene_fog_regions_and_diffuse_volumes():
     assert a.diffuse_volume_node == b.diffuse_volume_node == [1, 4]
     assert a.diffuse_volume_res == b.diffuse_volume_res \
         == [(8, 2, 8), (3, 2, 5)]
+    assert scene_entities(a) == scene_entities(b)
+    assert [e.get_component(TS.VolumetricDiffuseLightComponent).index
+            for e in a.diffuse_volume_entity] == [0, 1]
     for sc in scenes:
         sc.update_transform_tree()
     _eq(a.world[:6], b.world[:6])

@@ -68,7 +68,12 @@ def test_port_imports_without_jax():
         "tools.bitmap_to_mesh", "tools.gltf_repacker",
         "tools.convert_equirect_to_environment",
         "tools.convert_cube_to_environment", "tools.sweep_scene",
-        "tools.aa_bench", "tools.quality_receipt", "tools.hw_verify")} \
+        "tools.aa_bench", "tools.quality_receipt", "tools.hw_verify",
+        # the host subsystems: audio, netfs, the pyro protocol, physics
+        # and the ECS
+        "audio", "audio.backend", "audio.dsp", "audio.mixer", "network",
+        "network.netfs", "video", "video.pyro", "physics",
+        "physics.physics_system", "physics.shapes", "scene.ecs")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"
