@@ -238,6 +238,29 @@
    each rolled by its index, through send_frame with PYRO_FEC stripes and
    one data subpacket dropped a frame (the first, the tail, then seeded),
    each reassembled byte-equal with the drop recovered; ms a frame).
+   Phase parallel (granite_tpu_torch.parallel; launches counted in each
+   rank from its start, summed over the ranks): PARALLEL_RANKS gloo
+   ranks on the one card (launch.spawn_ranks).  (a) The bench scene's
+   1920x1080 main view (every triangle, CULL_BACK) through
+   rasterize_binned_sharded: the gathered depth and ids exactly the
+   unsharded B1's, each band's count the plain band_cull_setup's, the
+   counts' sum < 2x the valid total, no band overflow, B1 once a rank
+   (the largest band's share printed: the view is not spread evenly over
+   its rows, so the JAX test's max <= max(3 x total / n, 64) is held on
+   (b) only); then each band's
+   B1 inputs against the plain version (exact), timed alone on the card
+   (the ranks take turns), with walk_bound, beside B1 on the whole view
+   unsharded (timed in the parent, not counted).  (b) The same on the JAX
+   dryrun's 24-sphere field at SPHERES_W x SPHERES_H, with the JAX
+   test's balance gate.  (c) The deferred
+   bench frame (BENCH_CONFIG) through shard_frame_step, WARMUP +
+   PARALLEL_FRAMES frames: rank 0's gathered backbuffer against the same
+   frames unsharded in rank 0 (u8 max |diff| <= 2, mean < 0.05, JAX's
+   sharded-frame gate), the luminance history equal on every rank, 1
+   all_reduce and >= 1 all_gather a timed frame, each rank's launches a
+   frame those of the unsharded frame (B2 1, B3 2, B4 1); ms/frame on
+   rank 0 (CUDA events), the collectives' host ms, the placement.
+   (d) (c) on one nccl rank, at the same gate (its max |diff| printed).
 4. Cross-device checks at 128x72 on the card and on the CPU (plain
    versions), luma PSNR >= 48 dB: the golden configs deferred_hdr,
    forward_shadow, deferred_smaa, forward_vsm_fxaa, deferred_taa_fog,
@@ -281,9 +304,8 @@ import tempfile
 import time
 import types
 
-BENCH_CONFIG = {"renderer": "deferred", "hdrBloom": True,
-                "shadowMapResolution": 2048, "rasterMaxVisible": 163840,
-                "shadowTermHalfRes": True}
+from granite_tpu_torch.app.bench_scene import BENCH_CONFIG
+
 FORWARD_CONFIG = {"renderer": "forward", "hdrBloom": True,
                   "shadowMapResolution": 2048,
                   "directionalLightShadowsVSM": True, "postAA": "fxaa",
@@ -364,6 +386,10 @@ AUDIO_S, AUDIO_RATE, AUDIO_BLOCK, AUDIO_WAV_S = 2.0, 48000, 256, 1.0
 NETFS_BLOB_BYTES, NETFS_READS = int(60.5 * 2 ** 20), 3
 PYRO_FRAMES, PYRO_FEC, PYRO_BATCH = 8, (4, 4), 64
 HOST_SEED = 41
+# The parallel phase: ranks on the one card, timed frames a rank, and the
+# JAX dryrun's sphere field (__graft_entry__._dryrun_sharded_raster_1080p).
+PARALLEL_RANKS, PARALLEL_FRAMES = 4, 4
+SPHERES_W, SPHERES_H = 1920, 1088
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -2800,6 +2826,162 @@ def host_subsystems(frame) -> tuple[dict, dict]:
     return launches, out
 
 
+def band_b1_case(mesh, arrays, width: int, height: int, label: str) -> dict:
+    """Kernel B1 on this rank's band of the setup `arrays`, binned as
+    rasterize_binned_sharded bins it, through b1_case (against the plain
+    version, device ms, plain ms, bound).  The ranks take turns (a
+    barrier each), so each band is timed alone on the card."""
+    import torch.distributed as dist
+    from granite_tpu_torch.parallel import dryrun as PD
+    from granite_tpu_torch.parallel import sharded_raster as SRD
+    setup = PD.setup_from_arrays(arrays, mesh.device)
+    band_h = height // mesh.size
+    capacity = SRD.default_band_capacity(setup.adj.shape[0], mesh.size)
+    case = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            args, _, local = SRD.band_raster_args(setup, width, r * band_h,
+                                                  band_h, capacity)
+            case = b1_case(args, f"{label} band {r} ({width}x{band_h} of "
+                           f"{width}x{height}, {int(local.valid.sum())} "
+                           "triangles)")
+        dist.barrier(group=mesh.group)
+    return case
+
+
+def parallel_rank(mesh, bench_arrays: dict, sphere_arrays: dict) -> dict:
+    """One rank of the parallel phase: (a), (b) and (c) of the module
+    docstring."""
+    from granite_tpu_torch.parallel import dryrun as PD
+    out = {}
+    for name, arrays, (w, h) in (
+            ("bench", bench_arrays, (WIDTH, HEIGHT)),
+            ("spheres", sphere_arrays, (SPHERES_W, SPHERES_H))):
+        out[name] = PD.raster_leg(mesh, arrays, w, h)
+        out[name]["case"] = band_b1_case(mesh, arrays, w, h, name)
+    out["frame"] = PD.frame_leg(mesh, BENCH_CONFIG, WIDTH, HEIGHT, WARMUP,
+                                PARALLEL_FRAMES, bench_scene=True)
+    return out
+
+
+def parallel_frame_check(ranks: list, label: str) -> dict:
+    """(c)'s and (d)'s gates on frame_leg's results (rank order)."""
+    import numpy as np
+    from granite_tpu_torch.parallel import dryrun as PD
+    got = PD.check_frame(ranks, HEIGHT)
+    r0 = ranks[0]
+    want = r0["reference_launches"]
+    check(all(want[k] >= 1 for k in ("B2", "B3", "B4")),
+          f"{label}: the unsharded frame launched {want}")
+    for r in ranks:
+        for i, f in enumerate(r["frames"]):
+            check(f["launches"] == want, f"{label}: rank {r['rank']} frame "
+                  f"{i} launched {f['launches']}, unsharded {want}")
+    ok, means = image_gate(r0["frame"])
+    check(ok, f"{label}: image gate failed: means {means}")
+    gather_ms = [float(np.mean([c["all_gather"] for c in r["collective_ms"]]))
+                 for r in ranks]
+    reduce_ms = [float(np.mean([c["all_reduce"] for c in r["collective_ms"]]))
+                 for r in ranks]
+    banded = [p for p, how in r0["placement"].items()
+              if how.startswith(("banded", "reduced"))]
+    log(f"parallel {label}: {HEIGHT}x{WIDTH} frame vs unsharded max |diff| "
+        f"{got['max_diff']}, mean {got['mean_diff']:.6f}; luminance "
+        f"{got['luminance']} on every rank; rank 0 {r0['ms']:.3f} ms/frame "
+        f"(CUDA events; host {r0['host_ms']:.3f}) over {len(r0['frames'])} "
+        f"frames, set-up + warm-up {r0['setup_s']:.1f} s; all_gather host "
+        f"ms a frame by rank {[round(x, 3) for x in gather_ms]}, all_reduce "
+        f"{[round(x, 3) for x in reduce_ms]}; collectives a frame "
+        f"{r0['frames'][-1]['collectives']}; launches a frame {want}; "
+        f"banded or reduced {banded}; placement {r0['placement']}")
+    return dict(got, ms=r0["ms"], host_ms=r0["host_ms"],
+                setup_s=r0["setup_s"], all_gather_ms=gather_ms,
+                all_reduce_ms=reduce_ms, placement=r0["placement"],
+                collectives=r0["frames"][-1]["collectives"],
+                launches_a_frame=want)
+
+
+def parallel_phase(results: dict) -> tuple[dict, dict, dict]:
+    """Phase parallel (see the module docstring).  -> (the gloo ranks'
+    launches summed, the nccl rank's launches, its numbers)."""
+    import torch
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.parallel import dryrun as PD
+    from granite_tpu_torch.parallel.launch import spawn_ranks
+    from granite_tpu_torch.parallel.sharded_raster import band_cull_setup
+    from granite_tpu_torch.ops import raster_binned as RB
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    n = PARALLEL_RANKS
+    app = make_app(BENCH_CONFIG, True, "cuda")
+    app.swapchain_updated(WIDTH, HEIGHT)
+    params = app.build_frame_params(FRAME_TIME, 0.0)
+    ext = params["external"]
+    clip = SR.transform_vertices(app.packed, ext["world"],
+                                 ext["normal_mats"], params["view_proj"])[0]
+    every = torch.ones(app.packed.num_objects, dtype=torch.bool,
+                       device=clip.device)
+    setups = {"bench": (view_setup(app, clip, every, WIDTH, HEIGHT), WIDTH,
+                        HEIGHT),
+              "spheres": (PD.sphere_field_setup(SPHERES_W, SPHERES_H,
+                                                "cuda"),
+                          SPHERES_W, SPHERES_H)}
+    del app
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    ranks = spawn_ranks(n, parallel_rank,
+                        PD.setup_arrays(setups["bench"][0]),
+                        PD.setup_arrays(setups["spheres"][0]),
+                        backend="gloo", device="cuda")
+    log(f"parallel: {n} gloo ranks on one card took "
+        f"{time.monotonic() - t:.1f} s")
+    launches = {k: sum(r["frame"]["launches"][k] for r in ranks)
+                for k in K.LAUNCHES}
+    out = {}
+    for name, (setup, w, h) in setups.items():
+        legs = [r[name] for r in ranks]
+        launches["B1"] += sum(leg["b1_launches"] for leg in legs)
+        # the JAX test's balance gate holds for the sphere field; the
+        # bench view puts most triangles in one band (printed)
+        got = PD.check_raster(legs, setup, w, h, kernel=True,
+                              balanced=name == "spheres")
+        band_h = h // n
+        want = [int(band_cull_setup(setup, b * band_h, band_h).valid.sum())
+                for b in range(n)]
+        check(got["counts"] == want, f"parallel {name}: band counts "
+              f"{got['counts']}, band_cull_setup's {want}")
+        for leg in legs:
+            add_case(results, "B1", dict(leg["case"],
+                                         launches=leg["b1_launches"]))
+        # the same view unsharded, the bands' yardstick (not counted)
+        pk, st, hr, hs = RB.bin_triangles(setup, w, h)[:4]
+        whole = b1_case((st, hs, pk, hr, -(-w // RB.TILE_W),
+                         -(-h // RB.TILE_H), RB.SPAN_W, RB.SPAN_H),
+                        f"{name} {w}x{h} unsharded")
+        add_case(results, "B1", whole)
+        log(f"parallel {name} {w}x{h} over {n} bands: exact against the "
+            f"unsharded B1 ({got['covered']} covered), counts {got['counts']}"
+            f" of {got['total']} valid (the largest "
+            f"{max(got['counts']) / got['total']:.3f} of it), stats "
+            f"{ {k: v.tolist() for k, v in legs[0]['stats'].items()} }; "
+            f"B1 a band ms {[round(leg['case']['ms'], 4) for leg in legs]}, "
+            f"bound {[round(leg['case']['bound_ms'], 4) for leg in legs]}; "
+            f"unsharded {whole['ms']:.4f} ms, bound {whole['bound_ms']:.4f}")
+        out[name] = dict(got, unsharded_ms=whole["ms"], bands=[
+            {k: leg["case"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
+            for leg in legs])
+    out["frame"] = parallel_frame_check([r["frame"] for r in ranks],
+                                        f"{n} gloo ranks")
+    t = time.monotonic()
+    nccl = spawn_ranks(1, PD.dryrun_rank, {"frame": ("frame", dict(
+        cfg=BENCH_CONFIG, width=WIDTH, height=HEIGHT, warmup=WARMUP,
+        frames=PARALLEL_FRAMES, bench_scene=True))},
+        backend="nccl", device="cuda")
+    log(f"parallel: 1 nccl rank took {time.monotonic() - t:.1f} s")
+    out["nccl"] = parallel_frame_check([nccl[0]["frame"]], "1 nccl rank")
+    return launches, nccl[0]["frame"]["launches"], out
+
+
 def cross_device() -> None:
     import numpy as np
     import torch
@@ -2877,6 +3059,10 @@ def main() -> int:
         backbuffers.pop("deferred"))
     log(f"phase host_subsystems took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
+    by_path["parallel"], by_path["parallel_nccl"], parallel = \
+        parallel_phase(results)
+    log(f"phase parallel took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     cross_device()
     streaming_cross_device()
     triangle = triangle_demo()
@@ -2902,7 +3088,8 @@ def main() -> int:
                   "between CUDA events; plain_ms: CUDA events around N "
                   "calls; library_ms: as ms",
         "compile_probe": probe_result, "triangle_demo": triangle,
-        "tools": tools, "host_subsystems": host, "kernels": kernels}))
+        "tools": tools, "host_subsystems": host, "parallel": parallel,
+        "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

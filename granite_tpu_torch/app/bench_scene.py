@@ -24,6 +24,14 @@ from ..scene.scene_formats import (
 )
 
 
+# The viewer config bench.py renders the bench scene with (BASELINE
+# config 3: deferred HDR, the 2048^2 sun map, visibility compaction to
+# 163,840 triangles, the sun's PCF term at half resolution).
+BENCH_CONFIG = {"renderer": "deferred", "hdrBloom": True,
+                "shadowMapResolution": 2048, "rasterMaxVisible": 163840,
+                "shadowTermHalfRes": True}
+
+
 def checkerboard(size: int = 256, tiles: int = 8) -> np.ndarray:
     """Procedural checkerboard texture (linear float RGBA)."""
     yy, xx = np.mgrid[0:size, 0:size]

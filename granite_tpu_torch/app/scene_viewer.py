@@ -813,6 +813,12 @@ class SceneViewerApplication(Application):
             tm.add_texture_input("bloom-final")
             tm.add_texture_input("luminance")
         tm.set_execute(self._tonemap_pass)
+        self._display_size_hdr = self._use_fsr2 or (
+            self._rw, self._rh) == (width, height)
+        if self._display_size_hdr:
+            # no resize to display size (nor its sharpen): the tonemap,
+            # the UI composite and the encode are per pixel
+            tm.set_row_banded()
         if self._ldr_aa:
             # FXAA / SMAA 1x on the tonemapped LDR target (post/aa.cpp).
             name = "fxaa" if self._use_fxaa else "smaa"
@@ -918,12 +924,15 @@ class SceneViewerApplication(Application):
             .add_texture_input(self._hdr_name) \
             .add_history_input("luminance") \
             .add_color_output(thresh, rel(0.5, 4)) \
-            .set_execute(self._make_bloom_threshold(thresh))
+            .set_execute(self._make_bloom_threshold(thresh)) \
+            .set_row_banded()
+        # banded: the threshold band's sum and count, one all_reduce
         g.add_pass("luminance", Queue.ASYNC_COMPUTE) \
             .add_texture_input(thresh) \
             .add_history_input("luminance") \
             .add_storage_output("luminance", BufferInfo((), torch.float32)) \
-            .set_execute(self._make_luminance(thresh))
+            .set_execute(self._make_luminance(thresh)) \
+            .set_row_banded()
         prev = thresh
         for i, s in enumerate([0.25, 0.125, 0.0625, 0.03125][:depth]):
             name = "bloom-final" if depth == i + 1 else f"bloom-d{i}"
@@ -1267,14 +1276,16 @@ class SceneViewerApplication(Application):
             avg_lin = torch.exp2(ctx.history("luminance"))
             return {dst: HDR.bloom_threshold(
                 ctx.input(self._hdr_name), avg_lin, h, w,
-                dynamic_exposure=self.config.hdr_bloom_dynamic_exposure)}
+                dynamic_exposure=self.config.hdr_bloom_dynamic_exposure,
+                rows=ctx.rows(dst))}
         return ex
 
     def _make_luminance(self, src: str):
         def ex(ctx):
             return {"luminance": HDR.average_log_luminance(
                 ctx.input(src), ctx.history("luminance"),
-                ctx.params["frame_time"])}
+                ctx.params["frame_time"],
+                mean=lambda values: ctx.mean(src, values))}
         return ex
 
     def _make_bloom_down(self, i: int, src: str, dst: str):
@@ -1293,13 +1304,16 @@ class SceneViewerApplication(Application):
         return ex
 
     def _tonemap_pass(self, ctx):
+        # rows: this rank's band of the output (row-banded frames only)
+        rows = ctx.rows("ldr" if self._ldr_aa else "backbuffer")
         bloom = avg_log = None
         if self.config.hdr_bloom:
             bloom = ctx.input("bloom-final")
             if self.config.hdr_bloom_dynamic_exposure:
                 avg_log = ctx.input("luminance")
-        ldr = HDR.tonemap(ctx.input(self._hdr_name), bloom, avg_log)
-        if ldr.shape[:2] != (self.height, self.width):
+        ldr = HDR.tonemap(ctx.input(self._hdr_name), bloom, avg_log,
+                          rows=rows)
+        if not self._display_size_hdr:
             # Render size to display size (msaa's reduction too), then the
             # post-upscale sharpen.
             ldr = HDR.resize_bilinear(ldr, self.height, self.width)
@@ -1308,7 +1322,9 @@ class SceneViewerApplication(Application):
         if self.config.show_ui:
             # The UI overlay (the host-rendered widget tree), blended on
             # the display-size frame before the LDR AA or the encode.
-            ldr = composite_overlay(ldr, ctx.params["ui_overlay"])
+            overlay = ctx.params["ui_overlay"]
+            ldr = composite_overlay(
+                ldr, overlay if rows is None else overlay[rows[0]:rows[1]])
         if self._ldr_aa:
             return {"ldr": ldr.clamp(0.0, 1.0)}
         return {"backbuffer": encode_rgba8(ldr)}

@@ -7,6 +7,11 @@ order; execute() runs the passes in that order on the current stream
 and carries history resources (inputs read from LAST frame) to the next
 frame.  No tracing or compilation: PyTorch runs eagerly, and CUDA graphs
 are left to a later change.
+
+A pass that can compute just a band of its output rows declares so with
+`set_row_banded()` and reads its row window from `PassContext.rows`:
+parallel/framebuffer_sharding.py's runner then hands it the rows one
+rank owns.  Run whole (`execute`), every window is None.
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ class RenderPass:
         self.inputs: list[str] = []
         self.history_inputs: list[str] = []
         self._execute: Optional[Callable] = None
+        self.row_banded = False
 
     def add_color_output(self, name: str,
                          info: Optional[AttachmentInfo] = None
@@ -125,15 +131,27 @@ class RenderPass:
         self._execute = fn
         return self
 
+    def set_row_banded(self) -> "RenderPass":
+        """Declare that the execute fn honours `ctx.rows`: for each output
+        with a row window it returns only those rows, and it accepts an
+        input held as a band (`ctx.rows(input)` not None)."""
+        self.row_banded = True
+        return self
+
 
 class PassContext:
+    """What a pass's execute fn sees.  `bands` is the row-banded runner's
+    frame state (parallel/framebuffer_sharding.py: rows,
+    all_reduce_sum), None when the graph runs whole."""
+
     def __init__(self, graph: "RenderGraph", rp: RenderPass, pool: dict,
-                 history: dict, params: Any):
+                 history: dict, params: Any, bands=None):
         self._graph = graph
         self._rp = rp
         self._pool = pool
         self._history = history
         self.params = params
+        self._bands = bands
 
     def input(self, name: str):
         if name not in self._rp.inputs:
@@ -157,6 +175,24 @@ class PassContext:
 
     def backbuffer_size(self) -> tuple[int, int]:
         return self._graph._sw_h, self._graph._sw_w
+
+    def rows(self, name: str):
+        """(y0, y1): the rows of resource `name` that this rank holds (an
+        input) or must return (an output of a `set_row_banded` pass) when
+        the frame runs row-banded; None when the pass sees or writes all
+        of it."""
+        return None if self._bands is None else self._bands.rows(name)
+
+    def mean(self, name: str, values):
+        """The mean of `values` (one value a pixel of what this rank holds
+        of resource `name`) over the whole resource: `.mean()` when the
+        rank holds all of it, else the band's sum and pixel count summed
+        over the ranks by one all_reduce."""
+        if self.rows(name) is None:
+            return values.mean()
+        total = self._bands.all_reduce_sum(torch.stack(
+            [values.sum(), values.new_tensor(float(values.numel()))]))
+        return total[0] / total[1]
 
 
 class RenderGraph:
@@ -262,24 +298,29 @@ class RenderGraph:
             r.name for r in self._resources.values()
             if any(p in alive for p in r.history_readers)]
 
+    def resource_shape(self, name: str) -> tuple:
+        """The whole shape of resource `name` at the current size."""
+        info = self._resources[name].info
+        return info.shape(self._sw_w, self._sw_h) \
+            if isinstance(info, AttachmentInfo) else tuple(info.shape)
+
     def initial_history(self, device) -> dict:
         """Zero-cleared history resources for frame 0."""
-        out = {}
-        for name in self._history_resources:
-            info = self._resources[name].info
-            shape = info.shape(self._sw_w, self._sw_h) \
-                if isinstance(info, AttachmentInfo) else info.shape
-            out[name] = torch.zeros(shape, dtype=info.dtype, device=device)
-        return out
+        return {name: torch.zeros(self.resource_shape(name),
+                                  dtype=self._resources[name].info.dtype,
+                                  device=device)
+                for name in self._history_resources}
 
-    def run_pass(self, pname: str, pool: dict, history, params) -> dict:
+    def run_pass(self, pname: str, pool: dict, history, params,
+                 bands=None) -> dict:
         """Run pass `pname`, cast its outputs to their targets' types and
-        add them to `pool`; -> those outputs."""
+        add them to `pool`; -> those outputs.  bands: see PassContext."""
         rp = self._passes[pname]
         # A named range per pass: torch.profiler attributes host and
         # device time to it (a no-op when no profiler is active).
         with torch.profiler.record_function(f"pass:{pname}"):
-            outs = rp._execute(PassContext(self, rp, pool, history, params))
+            outs = rp._execute(PassContext(self, rp, pool, history, params,
+                                           bands))
         if set(outs) != set(rp.outputs):
             raise RenderGraphError(
                 f"pass '{pname}' returned {sorted(outs)}, declared "

@@ -7,7 +7,12 @@ started together, and linked into ONE shared library under the
 repository's gitignored `build/` directory, bound with ctypes (no
 PyTorch headers: the build takes seconds, not minutes).  The library
 name carries a hash of the sources and flags, so an edited kernel is
-rebuilt rather than reused.
+rebuilt rather than reused.  The build holds an exclusive file lock
+(`fcntl.flock` on `<library>.lock`): several processes that start on a
+fresh build directory (the ranks of `granite_tpu_torch.parallel`) would
+otherwise write, link and delete each other's object files, which are
+named after the library.  The first builds; the others wait for it and
+find the library.
 
 `build_variant` builds one source with extra `-D` defines into a library
 of its own, under the same flags (the compile probe,
@@ -21,6 +26,7 @@ show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import subprocess
 from pathlib import Path
@@ -102,6 +108,17 @@ def build() -> Path:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
                            "built (PATH, CUDA_HOME, /usr/local/cuda)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(out.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():        # another process built it meanwhile
+            _compile_and_link(nvcc, out)
+    return out
+
+
+def _compile_and_link(nvcc: str, out: Path) -> None:
+    """One nvcc a source, all started together, then the link into a
+    temporary name renamed over `out` (atomic for readers that do not
+    take the lock).  Called with build()'s lock held."""
     objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in _sources()]
     jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(_sources(), objs)]
@@ -127,7 +144,6 @@ def build() -> Path:
     tmp.replace(out)
     for obj in objs:
         obj.unlink()
-    return out
 
 
 def variant_command(nvcc: str, src: Path, defines: dict, out: Path) -> list:

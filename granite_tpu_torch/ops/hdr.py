@@ -66,21 +66,26 @@ def sample_bilinear_packed(packed, C: int, u, v):
             + (quad[..., 2, :] * (1 - fx) + quad[..., 3, :] * fx) * fy)
 
 
-def _upsample_axis_int(img, f: int, axis: int):
-    """Exact integer-factor bilinear upsample along one axis by fixed
-    phase blends of shifted copies."""
+def _upsample_axis_int(img, f: int, axis: int, rows=None):
+    """Exact integer-factor bilinear upsample along one axis: output
+    texel r * f + p is the fixed phase-p blend of input texels r + k and
+    r + k + 1 (edge clamped).  rows (y0, y1): only those output texels
+    of the axis (default all n * f), each computed as in the whole."""
     img = img.movedim(axis, 0)
     n = img.shape[0]
-    phases = []
-    for r in range(f):
-        phi = (r + 0.5) / f - 0.5
+    y0, y1 = (0, n * f) if rows is None else rows
+    out = img.new_empty((y1 - y0,) + img.shape[1:])
+    for p in range(f):
+        first = y0 + (p - y0) % f
+        if first >= y1:
+            continue
+        phi = (p + 0.5) / f - 0.5
         k = -1 if phi < 0 else 0
         t = phi - k
-        a = torch.cat([img[:1]] * max(-k, 0) + [img[:n - max(-k, 0)]]) \
-            if k < 0 else img
-        b = torch.cat([img[1:], img[-1:]]) if k + 1 == 1 else img
-        phases.append(a * (1 - t) + b * t)
-    out = torch.stack(phases, dim=1).reshape((n * f,) + img.shape[1:])
+        r = torch.arange(first, y1, f, device=img.device) // f
+        a = img[(r + k).clamp(0, n - 1)]
+        b = img[(r + k + 1).clamp(0, n - 1)]
+        out[first - y0::f] = a * (1 - t) + b * t
     return out.movedim(0, axis)
 
 
@@ -108,32 +113,42 @@ def _upsample2_axis(img, axis: int):
     return out.movedim(0, axis)
 
 
-def uv_grid(out_h: int, out_w: int, device):
+def uv_grid(out_h: int, out_w: int, device, rows=None):
+    """Texel-centre uv of an out_h x out_w grid; rows (y0, y1) gives only
+    those rows (the same values as the whole grid's)."""
+    y0, y1 = (0, out_h) if rows is None else rows
     u = (torch.arange(out_w, dtype=torch.float32, device=device) + 0.5) \
         / out_w
-    v = (torch.arange(out_h, dtype=torch.float32, device=device) + 0.5) \
+    v = (torch.arange(y0, y1, dtype=torch.float32, device=device) + 0.5) \
         / out_h
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     return uu, vv
 
 
-def resize_bilinear(img, out_h: int, out_w: int):
+def resize_bilinear(img, out_h: int, out_w: int, rows=None):
+    """Bilinear resize of (H, W, C) to (out_h, out_w, C); rows (y0, y1)
+    computes only those output rows, each as the whole resize computes
+    it (the row-banded frame of parallel/framebuffer_sharding.py)."""
     h, w = img.shape[:2]
     if out_h == h and out_w == w:
-        return img
+        return img if rows is None else img[rows[0]:rows[1]]
     if h == 2 * out_h and w == 2 * out_w:
+        if rows is not None:
+            img = img[2 * rows[0]:2 * rows[1]]
+            out_h = rows[1] - rows[0]
         return img.reshape(out_h, 2, out_w, 2, -1).mean(dim=(1, 3)) \
             .reshape(out_h, out_w, img.shape[-1])
     if out_h % h == 0 and out_w % w == 0 and out_h // h == out_w // w:
         return _upsample_axis_int(
-            _upsample_axis_int(img, out_h // h, 0), out_w // w, 1)
-    uu, vv = uv_grid(out_h, out_w, img.device)
+            _upsample_axis_int(img, out_h // h, 0, rows), out_w // w, 1)
+    uu, vv = uv_grid(out_h, out_w, img.device, rows)
     return _sample_bilinear_uv(img, uu, vv)
 
 
 def bloom_threshold(hdr, avg_linear_lum, out_h: int, out_w: int,
-                    dynamic_exposure: bool = True):
-    half = resize_bilinear(hdr, out_h, out_w)
+                    dynamic_exposure: bool = True, rows=None):
+    """rows (y0, y1): only those rows of the (out_h, out_w) output."""
+    half = resize_bilinear(hdr, out_h, out_w, rows)
     lum = half.max(dim=-1).values + 1e-4
     loglum = torch.log2(lum)
     color = half / lum[..., None]
@@ -142,8 +157,12 @@ def bloom_threshold(hdr, avg_linear_lum, out_h: int, out_w: int,
     return torch.cat([rgb, loglum[..., None]], dim=-1)
 
 
-def average_log_luminance(threshold_out, old_log_lum, frame_time):
-    avg = threshold_out[..., 3].mean().clamp(LUM_MIN_LOG, LUM_MAX_LOG)
+def average_log_luminance(threshold_out, old_log_lum, frame_time,
+                          mean=torch.mean):
+    """mean: the reduction over the threshold target's pixels (a row band
+    passes the band's sum and count through an all_reduce,
+    graph.render_graph.PassContext.mean)."""
+    avg = mean(threshold_out[..., 3]).clamp(LUM_MIN_LOG, LUM_MAX_LOG)
     lerp = 1.0 - torch.pow(torch.tensor(0.5, device=avg.device),
                            frame_time)
     return old_log_lum + (avg - old_log_lum) * lerp
@@ -204,13 +223,15 @@ def _uncharted2(x):
             / (x * (_A * x + _B) + _D * _F)) - _E / _F
 
 
-def tonemap(hdr, bloom, avg_log_lum=None):
+def tonemap(hdr, bloom, avg_log_lum=None, rows=None):
     """hdr + bilinearly upsampled bloom, exposure exp2(-avg log lum),
-    Uncharted2 filmic curve."""
+    Uncharted2 filmic curve; rows (y0, y1): only those rows of it."""
     h, w = hdr.shape[:2]
+    if rows is not None:
+        hdr = hdr[rows[0]:rows[1]]
     if bloom is not None:
-        if bloom.shape[:2] != (h, w):
-            bloom = resize_bilinear(bloom, h, w)
+        if bloom.shape[:2] != (h, w) or rows is not None:
+            bloom = resize_bilinear(bloom, h, w, rows)
         hdr = hdr + bloom[..., :3]
     if avg_log_lum is not None:
         hdr = hdr * torch.exp2(-avg_log_lum)

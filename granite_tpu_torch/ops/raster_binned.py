@@ -594,23 +594,31 @@ def raster_tiles(starts, huge_row_starts, packets, huge_rows,
     return depth, tri
 
 
-def rasterize_binned(setup: TriangleSetup, width: int, height: int,
-                     huge_cap: int = 1024, max_visible: int | None = None,
-                     span_w: int = SPAN_W, span_h: int = SPAN_H,
-                     with_stats: bool = False):
-    """Full binned rasterization -> (depth (H, W), tri (H, W))
-    [, stats].  stats adds max_bin_entries and clamped_entries to the
-    binner's overflow counters."""
+def binned_raster_args(setup: TriangleSetup, width: int, height: int,
+                       huge_cap: int = 1024, max_visible: int | None = None,
+                       span_w: int = SPAN_W, span_h: int = SPAN_H):
+    """bin_triangles -> (raster_tiles' arguments, stats): the binner's
+    overflow counters plus max_bin_entries and clamped_entries."""
     tx = -(-width // TILE_W)
     ty = -(-height // TILE_H)
     packets, starts, huge_rows, huge_row_starts, stats = bin_triangles(
         setup, width, height, huge_cap, max_visible=max_visible,
         span_w=span_w, span_h=span_h)
-    depth, tri = raster_tiles(starts, huge_row_starts, packets, huge_rows,
-                              tx, ty, span_w, span_h)
-    if with_stats:
-        stats["max_bin_entries"] = (starts[1:] - starts[:-1]).max()
-        stats["clamped_entries"] = clamped_entries(
-            starts, huge_row_starts, tx, ty, span_w, span_h)
-        return depth[:height, :width], tri[:height, :width], stats
-    return depth[:height, :width], tri[:height, :width]
+    stats["max_bin_entries"] = (starts[1:] - starts[:-1]).max()
+    stats["clamped_entries"] = clamped_entries(
+        starts, huge_row_starts, tx, ty, span_w, span_h)
+    return (starts, huge_row_starts, packets, huge_rows, tx, ty, span_w,
+            span_h), stats
+
+
+def rasterize_binned(setup: TriangleSetup, width: int, height: int,
+                     huge_cap: int = 1024, max_visible: int | None = None,
+                     span_w: int = SPAN_W, span_h: int = SPAN_H,
+                     with_stats: bool = False):
+    """Full binned rasterization -> (depth (H, W), tri (H, W))
+    [, stats (binned_raster_args')]."""
+    args, stats = binned_raster_args(setup, width, height, huge_cap,
+                                     max_visible, span_w, span_h)
+    depth, tri = raster_tiles(*args)
+    depth, tri = depth[:height, :width], tri[:height, :width]
+    return (depth, tri, stats) if with_stats else (depth, tri)

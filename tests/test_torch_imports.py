@@ -73,7 +73,10 @@ def test_port_imports_without_jax():
         # and the ECS
         "audio", "audio.backend", "audio.dsp", "audio.mixer", "network",
         "network.netfs", "video", "video.pyro", "physics",
-        "physics.physics_system", "physics.shapes", "scene.ecs")} \
+        "physics.physics_system", "physics.shapes", "scene.ecs",
+        # the multi-device framebuffer and its entry point
+        "parallel", "parallel.launch", "parallel.framebuffer_sharding",
+        "parallel.sharded_raster", "parallel.dryrun", "parallel.__main__")} \
         <= set(lines["NAMES"].split())
     assert lines["JAX"] == "[]"
     assert lines["GRANITE_TPU"] == "[]"

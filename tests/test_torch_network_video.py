@@ -10,6 +10,7 @@ subpacket).  Every server is stopped in `finally`."""
 
 import socket
 import struct
+import sys
 import time
 
 import numpy as np
@@ -193,17 +194,32 @@ class _ChunkedSocket:
         return k
 
 
+def _wait_in_accept(thread, timeout: float = 5.0) -> None:
+    """Return once `thread` is blocked in socket.accept(): a server loop
+    back at its accept after handing a client to its handler."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        frame = sys._current_frames().get(thread.ident)
+        if frame is not None and frame.f_code.co_name == "accept":
+            return
+        time.sleep(0.001)
+    raise AssertionError("the server thread never returned to accept()")
+
+
 def test_netfs_stop_closes_the_listener():
     """After stop() with a client served: the JAX package's accept thread
     is still blocked (closing a listening socket does not wake accept()
     on Linux) and serves a new client on the port; the port's stop()
-    shuts the listener down, its thread ends and the port refuses."""
+    shuts the listener down, its thread ends and the port refuses.
+    stop() comes once the thread is back in accept(): stopped before it
+    gets there, either loop sees `_running` False and ends."""
     out = {}
     for name, (N, V) in NETFS.items():
         srv = N.NetfsServer(V.MemoryBackend({"a": b"1"}))
         srv.start()
         try:
             assert N.NetfsBackend(HOST, srv.port).read_file("a") == b"1"
+            _wait_in_accept(srv._thread)
         finally:
             srv.stop()
         # (the JAX thread's next accept() returns this client, after
