@@ -59,8 +59,11 @@
    scene at 1920x1080, 2 warm-up frames then 8 frames through
    render_frames_chained, ms/frame from CUDA events and the host clock;
    image gate, launch counts (every kernel of the path > 0) and the
-   raster overflow counters; then 2 more frames under torch.profiler give
-   the device's busy time a frame, and 1 - busy / ms its idle share.
+   raster overflow counters; each chained path's checksum (the float32
+   sum the chain keeps on the device of its frames' backbuffers but the
+   last) within CHECKSUM_REL_GATE of the float64 sum of those frames;
+   then 2 more frames under torch.profiler give the device's busy time a
+   frame, and 1 - busy / ms its idle share.
      deferred:      the bench config (deferred HDR), camera orbiting
                     (camera_orbit=0.01).
      forward:       the bench config with the forward renderer, VSM sun
@@ -185,6 +188,19 @@
                     last timed frame's inputs against its plain version
                     (1e-6) on the baked strip and, for the same inputs,
                     on the default strip, both timed.
+     auto_halfspec: the bench config with rasterMaxVisible "auto" and
+                    envSpecularHalfRes, orbiting: B3's environment fetch
+                    at 960x540 in every frame, upsampled; the compaction
+                    capacity auto chose in each timed frame printed (0:
+                    the orbit sees every triangle).  Then B3's
+                    environment fetch on the last timed frame's half-res
+                    inputs against its plain version (1e-6), timed; and,
+                    as the orbit leaves auto at 0, a new viewer's frame
+                    from the wall view (inside the atrium, toward its +x
+                    wall): its capacity strictly between 0 and the
+                    scene's total, B2 launched and no triangle dropped,
+                    the frame bit-equal to the same frame uncapped, and
+                    B2 at that capacity against its plain version.
      video_player:  `python -m granite_tpu_torch.app.video_player`'s
                     entry point (main) on the card at 1920x1080 with
                     --video-size 1024 over a PNG sequence of VIDEO_COUNT
@@ -209,7 +225,8 @@
    integrate_brdf at BRDF_CHECK_SIZE on the card against the CPU
    (BRDF_GATE); hw_verify at 1920x1080 (exit 0, its report printed as one
    JSON line; sequential and chained frames byte-equal; B2 once a chained
-   frame); quality_receipt at 1920x1080 (luma PSNR, max abs diff,
+   frame; its chain checksum finite and within 0.5-1.5x of 3 times the
+   last frame's sum); quality_receipt at 1920x1080 (luma PSNR, max abs diff,
    changed share); aa_bench at its defaults (640x360, 16 chained frames,
    a viewer process a mode) but 4 of its 6 modes, AA_MODES; every mode's
    PNG through the image gate; us and PSNR a mode); sweep_scene with the bench config,
@@ -272,7 +289,9 @@
    deferred_taa_fog with fog regions and volumetric diffuse (resolution
    2, 8x8 faces), forward_shadow with cascades and PCFKernelWide,
    deferred_hdr with clusteredLightsShadowsVSM and with msaa 4 +
-   renderTargetFp16, deferred_taa_fog with showUi, each with
+   renderTargetFp16, deferred_taa_fog with showUi, deferred_hdr and
+   forward_vsm_fxaa with rasterMaxVisible "auto" and envSpecularHalfRes
+   from a camera for which auto caps the compaction, each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
    environment), and "true" sends the CPU down the same ones.  Then
@@ -390,6 +409,19 @@ HOST_SEED = 41
 # JAX dryrun's sphere field (__graft_entry__._dryrun_sharded_raster_1080p).
 PARALLEL_RANKS, PARALLEL_FRAMES = 4, 4
 SPHERES_W, SPHERES_H = 1920, 1088
+# rasterMaxVisible "auto" (the compaction capacity from each frame's
+# culling census, 1.5x the visible triangles rounded up to 8,192, 0 at or
+# past the scene total) and envSpecularHalfRes (B3's environment fetch at
+# every other pixel of the tiled route, upsampled).  The bench orbit sees
+# all 258,774 triangles, so auto leaves the compaction off there; the wall
+# view, from inside the atrium toward its +x wall, sees 78,694 (the host's
+# census), for which auto chooses 122,880.
+AUTO_CONFIG = {**BENCH_CONFIG, "rasterMaxVisible": "auto",
+               "envSpecularHalfRes": True}
+WALL_EYE, WALL_TARGET = (0.0, 2.0, 0.0), (20.0, 2.0, 0.0)
+# A chain's checksum (the float32 sum of its frames but the last, on the
+# device) against the float64 sum of the same frames: JAX's contract.
+CHECKSUM_REL_GATE = 1e-3
 # Main paths: name -> (config, kernels it must launch).
 MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "forward": (FORWARD_CONFIG, ("B1", "B2", "B3", "B3T", "B4")),
@@ -403,7 +435,8 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "cascades": (CASCADES_CONFIG, ("B1", "B2", "B3", "B4")),
               "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4")),
               "streaming": (STREAM_CONFIG, ("B1", "B2", "B3", "B4")),
-              "baked_env": (BENCH_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "baked_env": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
+              "auto_halfspec": (AUTO_CONFIG, ("B1", "B2", "B3", "B4"))}
 # Golden configs checked card against CPU: label -> (config name, with a
 # decal node, on the animated `.scene`, knobs added, camera (eye, target)
 # or None).  Each runs with materialTileSampler "true", so both devices
@@ -435,6 +468,15 @@ CROSS_DEVICE["deferred_hdr msaa 4 + renderTargetFp16"] = (
     None)
 CROSS_DEVICE["deferred_taa_fog showUi"] = (
     "deferred_taa_fog", False, False, {"showUi": True}, None)
+# (toward the sphere at (3.54, 1, -3.54): the culling census keeps 4,646
+# of the test scene's 10,866 triangles, and auto caps the compaction at
+# 8,192)
+CROSS_DEVICE.update({
+    f"{golden} rasterMaxVisible auto + envSpecularHalfRes": (
+        golden, False, False,
+        {"rasterMaxVisible": "auto", "envSpecularHalfRes": True},
+        ((8.0, 2.5, 1.5), (3.54, 1.0, -3.54)))
+    for golden in ("deferred_hdr", "forward_vsm_fxaa")})
 # The video player: VIDEO_COUNT seeded frames of VIDEO_BLOCK-px blocks
 # (frame i bright in channel i % 3), rendered at 1920x1080 into a
 # VIDEO_SIZE^2 texture; the frame ring VIDEO_RING deep; the quad covers
@@ -473,6 +515,8 @@ B3_OPS, B3_PIXEL_OPS = 12, 15
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, FRAMES, ORBIT = 2, 8, 0.01
 TRACED_FRAMES = 2
+# Traces of a path's TRACED_FRAMES frames taken until one keeps them all.
+TRACE_ATTEMPTS = 3
 FRAME_TIME = 1.0 / 60.0
 PSNR_GATE_DB = 48.0
 # id -> (source, TPU kernel it replaces, its CUDA kernels' attribute
@@ -712,9 +756,11 @@ def b1_case(args, label: str) -> dict:
     return dict(case=label, max_abs_err=err, ms=ms, plain_ms=pms, **b)
 
 
-def b2_case(app, params, width: int, height: int, prev=False):
-    """Kernel B2 against its plain version at (width, height); prev adds
-    the previous-position planes from params' prev_world (TAA).
+def b2_case(app, params, width: int, height: int, prev=False,
+            max_visible: int = BENCH_CONFIG["rasterMaxVisible"]):
+    """Kernel B2 against its plain version at (width, height), binned with
+    visibility compaction to max_visible triangles; prev adds the
+    previous-position planes from params' prev_world (TAA).
     -> (planes on the viewport, covered mask, result dict)."""
     import torch
     from granite_tpu_torch.ops import raster as R
@@ -736,7 +782,7 @@ def b2_case(app, params, width: int, height: int, prev=False):
     span_w, span_h = SR.bin_window(width, height)
     pk, st, hr, hs, stats = RB.bin_triangles(
         setup, width, height, span_w=span_w, span_h=span_h, extra=payload,
-        max_visible=int(BENCH_CONFIG["rasterMaxVisible"]))
+        max_visible=max_visible)
     tx, ty = -(-width // RB.TILE_W), -(-height // RB.TILE_H)
     args = (st, hs, pk, hr, tx, ty, span_w, span_h, prev)
     # Compared on the whole padded target: kernel and plain version both
@@ -1241,14 +1287,27 @@ def device_busy_ms(app, frames: int, run) -> tuple[float, dict]:
     viewer's `decals` blend, each the device time of the kernels launched
     inside the range's host-side event.  (key_averages() would merge in
     the range's device-side annotation, whose time is the span from its
-    first kernel to its last, idle gaps included.)"""
+    first kernel to its last, idle gaps included.)  A trace that kept
+    fewer than `frames` of the graph's last pass ranges lost a frame's
+    events (torch.profiler once halved every range of a path) and
+    is taken again, up to TRACE_ATTEMPTS times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(app, frames)
-        torch.cuda.synchronize()
+    last = f"pass:{app.graph._order[-1]}"
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(app, frames)
+            torch.cuda.synchronize()
+        kept = sum(1 for ev in prof.events()
+                   if ev.device_type == DeviceType.CPU and ev.name == last)
+        if kept == frames:
+            break
+        log(f"trace {attempt}: torch.profiler kept {kept} of the {frames} "
+            f"traced frames' {last} ranges")
+    check(kept == frames, f"no trace kept all {frames} traced frames")
+
     def named(key):
         return key.startswith("pass:") or key == "decals"
     ranges: dict = {}
@@ -1911,15 +1970,19 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     # Each kernel's launches in each timed frame: the render graph runs
     # once a frame, and a wrapper counts its launch on the host as it
-    # enqueues; under occlusion culling it also keeps each frame's cull
-    # counts (on the device) and its params, history and backbuffer
-    frames, culls, kept, last = [], [], [], {}
+    # enqueues; it keeps each frame's backbuffer (the chain's checksum is
+    # held against them) and compaction capacity; under occlusion culling
+    # also each frame's cull counts (on the device) and its params and
+    # history
+    frames, culls, kept, last, outs, caps = [], [], [], {}, [], []
     execute = app.graph.execute
 
     def counted(params, history):
         before = dict(K.LAUNCHES)
         result = execute(params, history)
         frames.append({k: K.LAUNCHES[k] - before[k] for k in before})
+        outs.append(result[0])
+        caps.append(app._resolved_max_visible())
         last["params"] = params
         if app.config.occlusion_culling:
             culls.append(dict(app.cull_counts))
@@ -1936,6 +1999,9 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     ms = start.elapsed_time(end) / FRAMES
     launches = dict(K.LAUNCHES)
     del app.graph.execute
+    if not streaming:
+        checksum_check(app, name, outs)
+    del outs
     b1_frames = [f["B1"] for f in frames]
     busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES, run)
     img = out.cpu().numpy()
@@ -1983,6 +2049,8 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
         files.cleanup()
     if baked:
         baked_env_check(app, default_env, last["params"], results)
+    if name == "auto_halfspec":
+        auto_halfspec_check(app, caps, last["params"], results)
     if name == "gltf_animated":
         check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
               f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
@@ -2005,6 +2073,93 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     del app
     torch.cuda.empty_cache()
     return launches
+
+
+def checksum_check(app, name: str, outs: list) -> None:
+    """The chain's checksum against its frames: the float32 sum the chain
+    kept on the device against the float64 sum of the backbuffers of the
+    timed frames but the last, within CHECKSUM_REL_GATE relative."""
+    import torch
+    chk = float(app._last_chain_checksum)
+    want = sum(float(o.to(torch.float64).sum()) for o in outs[:-1])
+    rel = abs(chk - want) / max(abs(want), 1.0)
+    log(f"chain checksum {name}: {chk:.9g} over {len(outs) - 1} of its "
+        f"{len(outs)} frames, the frames' float64 sum {want:.9g} "
+        f"(relative difference {rel:.3g})")
+    check(len(outs) == FRAMES and rel <= CHECKSUM_REL_GATE,
+          f"{name}'s chain checksum {chk} against its frames' sum {want}")
+
+
+def auto_halfspec_check(app, caps: list, params, results: dict) -> None:
+    """auto_halfspec's gates after its timed frames.  The capacity auto
+    chose in each timed frame (0: the bench orbit sees every triangle, so
+    no compaction); then the wall view on a new viewer (auto never leaves
+    0 once there): its capacity strictly between 0 and the scene total,
+    one frame at 1920x1080 through it (B2 launched, no triangle dropped),
+    bit-equal to the same frame uncapped; B2 at that capacity against its
+    plain version; and B3's environment fetch at the half-res shape of the
+    last timed frame's inputs against its plain version."""
+    import numpy as np
+    import torch
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.renderer import scene_renderer as SR
+    from granite_tpu_torch.renderer.environment import env_fetch_coords
+    total = int(app.packed.indices.shape[0])
+    log(f"auto_halfspec: compaction capacity in each timed frame "
+        f"{[c or 0 for c in caps]} (0: no compaction), compaction on in "
+        f"{sum(c is not None for c in caps)} of {len(caps)}; the scene's "
+        f"{total} triangles")
+    planes, cov, _b2 = b2_case(app, params, WIDTH, HEIGHT)
+    surf = surface(app, planes, cov)
+    refl, lod = SR.reflection(surf, params["camera_pos"],
+                              app.environment.num_levels)
+    refl, lod, hcov = SR.half_res_inputs(refl, lod, surf["covered"])
+    strips = app.environment.strips
+    eb, eu, ev = env_fetch_coords(strips, refl, hcov)
+    add_case(results, "B3", b3_case(
+        f"environment f32 C=4 half-res {WIDTH // 2}x{HEIGHT // 2}",
+        (strips, eb, eu, ev, lod, 4)))
+    del planes, cov, surf
+    if not all(c is None for c in caps):
+        return
+    wall = make_app(AUTO_CONFIG, True, "cuda")
+    wall.camera.look_at(np.asarray(WALL_EYE, np.float32),
+                        np.asarray(WALL_TARGET, np.float32))
+    wall.swapchain_updated(WIDTH, HEIGHT)
+    b2 = K.LAUNCHES["B2"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    capped = wall.render_frame(FRAME_TIME, 0.0).clone()
+    end.record()
+    torch.cuda.synchronize()
+    cap = wall._resolved_max_visible()
+    stats = wall.frame_stats()["gbuffer"]
+    b2 = K.LAUNCHES["B2"] - b2
+    wall.config.raster_max_visible = 0
+    wall.reset_history()
+    full = wall.render_frame(FRAME_TIME, 0.0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(capped, full))
+    log(f"auto_halfspec wall view {WALL_EYE} -> {WALL_TARGET}: capacity "
+        f"{cap} of {total} triangles, frame {start.elapsed_time(end):.3f} "
+        f"ms (CUDA events, a cold frame), B2 {b2}, gbuffer stats {stats};"
+        f" bit-equal to the frame uncapped: {same}")
+    check(cap is not None and 0 < cap < total,
+          f"auto chose {cap} on the wall view")
+    check(b2 >= 1 and stats["visible_overflow"] == 0,
+          f"the wall view's frame: B2 {b2}, stats {stats}")
+    ok, means = image_gate(capped.cpu().numpy())
+    check(ok and same, f"the wall view's frame: gate {ok} {means}, "
+          f"bit-equal to uncapped {same}")
+    wall.config.raster_max_visible = "auto"
+    params = wall.build_frame_params(FRAME_TIME)
+    _planes, _cov, case = b2_case(wall, params, WIDTH, HEIGHT,
+                                  max_visible=cap)
+    case["case"] += f" wall view, auto capacity {cap}"
+    add_case(results, "B2", case)
+    del wall, params, _planes, _cov
+    torch.cuda.empty_cache()
 
 
 def resident(app) -> bool:
@@ -2455,10 +2610,13 @@ def tools_path(directory: str) -> tuple[dict, dict]:
     check(report["chain_b2_launches"] == report["chain_frames"],
           f"hw_verify's chain launched B2 {report['chain_b2_launches']} "
           "times")
+    check(report["chain_checksum"] is not None
+          and bool(np.isfinite(report["chain_checksum"])),
+          f"hw_verify's chain checksum {report['chain_checksum']}")
     out["hw_verify"] = dict(seconds=s, **{
         k: report[k] for k in ("plane_means", "black_tiles", "chain_frames",
                                "chain_graph_executes", "chain_b2_launches",
-                               "ok")})
+                               "chain_checksum", "ok")})
 
     # quality_receipt at the bench resolution
     rc, text, s = run_tool(quality_receipt.main, [

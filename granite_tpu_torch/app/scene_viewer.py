@@ -56,6 +56,7 @@ Run:
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import importlib
 import json
@@ -267,14 +268,12 @@ class ViewerConfig:
         return cfg
 
     def check_slice(self) -> None:
-        """Raise NotImplementedError for knob values outside the port so
-        far (the untiled environment, the half-res specular environment,
-        the bin-plan cache and the non-kernel routes); every other knob of
-        the JAX viewer renders."""
+        """Raise NotImplementedError for knob values outside the port (the
+        untiled environment, the bin-plan cache and the non-kernel
+        routes); every other knob of the JAX viewer renders."""
         need = {
             "renderer": ("deferred", "forward"), "msaa": (1, 2, 4, 8),
             "env_tile_sampler": (True,),
-            "env_specular_half_res": (False,),
             "mesh_encoding": ("classic", "meshlet"),
             "post_aa": _POST_AA,
         }
@@ -294,9 +293,10 @@ class ViewerConfig:
                     "only the kernel route")
         if _flag(self.bin_plan_cache) != "false":
             raise NotImplementedError("binPlanCache is not ported")
-        if not isinstance(self.raster_max_visible, int):
-            raise NotImplementedError("rasterMaxVisible takes an int in the "
-                                      "port (0 = no compaction)")
+        if not isinstance(self.raster_max_visible, int) and \
+                self.raster_max_visible != "auto":
+            raise NotImplementedError("rasterMaxVisible takes an int (0 = no "
+                                      'compaction) or "auto"')
 
 
 def _add_child_node(info: SceneInfo, node: NodeData) -> int:
@@ -463,6 +463,12 @@ class SceneViewerApplication(Application):
         self._param_cache = None
         self._static_shadow_cache = None
         self._orbit_cache = None
+        # rasterMaxVisible "auto": the compaction capacity (None until the
+        # first frame's census, 0 = uncapped) and the triangles an object
+        self._auto_max_visible = None
+        self._tris_per_object = None
+        # render_frames_chained's checksum of its frames but the last
+        self._last_chain_checksum = None
         self.raster_stats: dict = {}
         # occlusionCulling: the last frame's objects in the frustum,
         # rendered in each phase and culled (0-dim device tensors, read
@@ -1016,7 +1022,33 @@ class SceneViewerApplication(Application):
 
     def _resolved_max_visible(self):
         mv = self.config.raster_max_visible
+        if mv == "auto":
+            mv = self._auto_max_visible or 0
         return mv if mv > 0 else None
+
+    def _update_auto_max_visible(self, masks) -> None:
+        """rasterMaxVisible "auto" (the JAX viewer's rule): the capacity
+        of the visibility compaction is 1.5x the worst visible-object
+        triangle count over `masks`, rounded up to 8192, and 0 (no
+        compaction) at or above the scene total.  It only grows: it never
+        shrinks and never leaves 0, so a frame never drops geometry that
+        an earlier frame kept.  JAX re-traces its compiled frame on a
+        growth; here nothing needs to follow one: the G-buffer pass reads
+        the capacity when it runs, bin_triangles sizes its buffers on each
+        call, and no cached params, orbit bank or raster buffer carries
+        it."""
+        if self._tris_per_object is None:
+            self._tris_per_object = np.bincount(
+                self.packed.tri_object.cpu().numpy(),
+                minlength=self.packed.num_objects)
+        worst = max(int(self._tris_per_object[m].sum()) for m in masks)
+        total = int(self.packed.indices.shape[0])
+        cap = max(8192, -(-int(worst * 1.5) // 8192) * 8192)
+        cap = 0 if cap >= total else cap
+        prev = self._auto_max_visible
+        if prev is not None and (prev == 0 or (cap != 0 and cap <= prev)):
+            return
+        self._auto_max_visible = cap
 
     def _raster_surface(self, ctx, xf, stats_key: str):
         """Raster + resolve (B2) + material fetch (B3) of the opaque
@@ -1118,6 +1150,9 @@ class SceneViewerApplication(Application):
             else self._transform(ctx)
         kw = {k: v for k, v in kw.items()
               if k not in ("background", "width", "height")}
+        # The reference shades this queue with its classic shade_surface,
+        # which fetches the specular environment at full resolution.
+        kw["env"] = {k: v for k, v in kw["env"].items() if k != "half_res"}
         return transparent_composite(
             self.packed, clip, depth, hdr, ctx.params["transparent_mask"],
             ctx.params, self._rw, self._rh, world_pos=wpos,
@@ -1185,8 +1220,9 @@ class SceneViewerApplication(Application):
         p = params
         # materialTileSampler picks the reference's routes: the tiled
         # half-res VSM term through B3T or the classic per-pixel term, and
-        # the specular environment at full resolution or at every other
-        # pixel, upsampled (B3 fetches materials and environment on every
+        # the specular environment at full resolution (at every other
+        # pixel, upsampled, under envSpecularHalfRes) or the untiled route's
+        # every other pixel (B3 fetches materials and environment on every
         # device).
         tiled = self._on_here(self.config.material_tile_sampler)
         kw = dict(shadow_map=shadow_map,
@@ -1201,7 +1237,8 @@ class SceneViewerApplication(Application):
                        "sh": self.environment.sh,
                        "levels": self.environment.num_levels,
                        "sky_params": self.environment.sky_params,
-                       "tiled": tiled},
+                       "tiled": tiled,
+                       "half_res": self.config.env_specular_half_res},
                   vol_diffuse=self._vol_diffuse)
         if self._has_lights:
             zn, zf = self._cluster_range
@@ -1648,6 +1685,8 @@ class SceneViewerApplication(Application):
             transparent_mask[scene.gather_visible_transparent_renderables(
                 self.context.frustum)] = True
             object_mask &= ~transparent_mask
+        if self.config.raster_max_visible == "auto":
+            self._update_auto_max_visible([object_mask])
         light_vp, static_mask, dynamic_mask = self.sun_shadow_view()
         n = scene.num_nodes
         world = scene.world[:n]
@@ -1778,8 +1817,10 @@ class SceneViewerApplication(Application):
 
     def render_frames_chained(self, frame_time: float, t0: float, n: int,
                               camera_orbit: float = 0.0):
-        """n frames in a Python loop with no host readback; returns the
-        last backbuffer on the device.  camera_orbit > 0 yaws the camera
+        """n frames through graph.execute_chain with no host readback;
+        returns the last backbuffer on the device and keeps the chain's
+        checksum (the float32 sum of frames 0 .. n-2's backbuffers, on the
+        device) in _last_chain_checksum.  camera_orbit > 0 yaws the camera
         by that many radians per frame.  A static scene keeps frame 0's
         params but the view params and light bins (culling masks stay at
         frame 0's, as in the reference's chained bench); under TAA the
@@ -1789,8 +1830,9 @@ class SceneViewerApplication(Application):
         (animations, an ocean or the UI) poses and rebuilds every frame's
         params at t0 + i * frame_time, the orbit included, as the
         reference's time-varying chain does.  Under GRANITE_DEBUG_GRAPH
-        every frame goes through render_frame at t0 + i * frame_time, as
-        in the reference (the debug route is per frame by nature)."""
+        every frame goes through render_frame at t0 + i * frame_time and
+        no checksum is kept, as in the reference (the debug route is per
+        frame by nature)."""
         if self._debug_graph:
             out = None
             for i in range(n):
@@ -1815,10 +1857,8 @@ class SceneViewerApplication(Application):
                 self._orbit_cache = (okey, self._orbit_banks(
                     params, n, camera_orbit))
             banks = self._orbit_cache[1]
-        out = None
-        for bank in banks:
-            out, self._history = self.graph.execute({**params, **bank},
-                                                    self._history)
+        out, self._history, self._last_chain_checksum = \
+            self.graph.execute_chain(params, banks, self._history)
         return out
 
     def _chain_time_varying(self, frame_time: float, t0: float, n: int,
@@ -1826,13 +1866,23 @@ class SceneViewerApplication(Application):
         """The eager counterpart of the reference's time-varying chain:
         frame i animates to t0 + i * frame_time and builds its params
         (skin palette, morph weights, world matrices, culling, light
-        bins, jitter) exactly as render_frame would."""
-        out = None
-        for i in self._orbit(n, camera_orbit):
-            et = t0 + i * frame_time
-            self.animation_system.animate(et)
-            params = self.build_frame_params(frame_time, et)
-            out, self._history = self.graph.execute(params, self._history)
+        bins, jitter) exactly as render_frame would, just before it runs:
+        on the CPU the params share the scene's node arrays, which the
+        next pose overwrites.  Under rasterMaxVisible "auto" frame i so
+        runs with the capacity of frames 0 .. i's census where the
+        reference's one program takes all n frames'; either capacity
+        holds every frame's visible triangles, and the compaction keeps
+        their order, so the frames are the same."""
+        def banks():
+            for i in self._orbit(n, camera_orbit):
+                et = t0 + i * frame_time
+                self.animation_system.animate(et)
+                yield self.build_frame_params(frame_time, et)
+
+        # (closed at once if a frame raises: _orbit puts the pose back)
+        with contextlib.closing(banks()) as frames:
+            out, self._history, self._last_chain_checksum = \
+                self.graph.execute_chain({}, frames, self._history)
         return out
 
     def _orbit(self, n: int, camera_orbit: float):

@@ -342,6 +342,32 @@ class RenderGraph:
         new_history = {n: pool[n] for n in self._history_resources}
         return pool[self._backbuffer], new_history
 
+    def execute_chain(self, static_params, banks, history):
+        """Run one frame per entry of `banks`, each with {**static_params,
+        **bank} and the history carried -> (last backbuffer, final history,
+        checksum).  banks: the per-frame params as a list, or an iterable
+        that makes each frame's just before it runs (the viewer's
+        time-varying chain builds a frame's params from the pose at its
+        time).  JAX's execute_chain takes banks stacked on a leading axis
+        of n instead; eager frames need no stacking.
+
+        checksum: the float32 sum of every backbuffer but the last,
+        accumulated on the device with no host read between frames (0 for
+        a single frame), as in JAX, whose checksum keeps XLA from dropping
+        the scanned frames' history-free passes.  Here it is a whole-run
+        integrity probe: a NaN in any frame shows in it."""
+        out = checksum = None
+        for bank in banks:
+            if out is not None:
+                checksum = checksum + out.to(torch.float32).sum()
+            out, history = self.execute({**static_params, **bank}, history)
+            if checksum is None:
+                checksum = torch.zeros((), dtype=torch.float32,
+                                       device=out.device)
+        if out is None:
+            raise RenderGraphError("execute_chain needs at least one frame")
+        return out, history, checksum
+
     def log(self) -> None:
         LOGI("RenderGraph: %d passes baked (backbuffer='%s', %dx%d)",
              len(self._order), self._backbuffer, self._sw_w, self._sw_h)

@@ -725,12 +725,36 @@ def material_lod(scene, duvdx, duvdy, lod_bias: float):
                            duvdy[..., 1], S, S, bias=lod_bias)
 
 
+def half_res_inputs(*planes):
+    """Every other pixel of each (H, W, ...) plane, copied at half size:
+    B3 reads rows of contiguous elements (ops/tile_sampler.row_stride)."""
+    return [t[::2, ::2].contiguous() for t in planes]
+
+
+def half_res_environment(strips, refl, lod, height: int, width: int,
+                         covered=None):
+    """The specular environment fetched (B3) at every other pixel, then
+    upsampled bilinearly to (height, width); uncovered half-res pixels
+    fetch nothing and stay 0, and the upsample blends them into their
+    neighbours, as in the reference."""
+    if covered is None:
+        refl, lod = half_res_inputs(refl, lod)
+    else:
+        refl, lod, covered = half_res_inputs(refl, lod, covered)
+    return resize_bilinear(sample_environment(strips, refl, lod,
+                                              covered=covered),
+                           height, width)
+
+
 def compute_env_products(surf, params, env, width: int, height: int,
                          background, vol_diffuse=None):
     """(irradiance/pi, specular env (B3), background) per pixel.  Under
     the analytic sky, env["tiled"] (default on) picks the reference's
-    route: the full-resolution fetch of its tile sampler, or its untiled
-    route, the fetch at every other pixel and a bilinear upsample.
+    route: its tile sampler's fetch, or its untiled route, the fetch at
+    every other pixel and a bilinear upsample.  env["half_res"]
+    (envSpecularHalfRes) takes the tiled fetch at every other pixel too,
+    upsampled, where the reference does: 3-D normals of even height and
+    width; the analytic sky background stays at full resolution.
     vol_diffuse ({"volumes", "fallback"}): the baked probe volumes give
     the irradiance instead of the SH sky (their probes carry the 1/pi)."""
     n = surf["normal"]
@@ -743,6 +767,8 @@ def compute_env_products(surf, params, env, width: int, height: int,
     else:
         irr = eval_sh9(env["sh"], n).clamp_min(0.0) / math.pi
     refl, lod = reflection(surf, cam, env["levels"])
+    half = (bool(env.get("half_res")) and n.dim() == 3
+            and n.shape[0] % 2 == 0 and n.shape[1] % 2 == 0)
     if background is None and width and height:
         px, py = R.pixel_centers(width, height, pos.device)
         ndc = torch.stack([2 * (px + 0.0) / width - 1,
@@ -755,19 +781,23 @@ def compute_env_products(surf, params, env, width: int, height: int,
             w.abs() < 1e-20, torch.full_like(w, 1e-20), w) - cam
         if env.get("sky_params"):
             background = analytic_sky(view_dirs, **env["sky_params"])
-            if env.get("tiled", True):
+            if not env.get("tiled", True):
+                spec_env = half_res_environment(env["strips"], refl, lod,
+                                                height, width)
+            elif half:
+                spec_env = half_res_environment(env["strips"], refl, lod,
+                                                height, width, covered=cov)
+            else:
                 spec_env = sample_environment(env["strips"], refl, lod,
                                               covered=cov)
-            else:
-                # (B3 reads lod as rows of contiguous elements)
-                spec_env = resize_bilinear(sample_environment(
-                    env["strips"], refl[::2, ::2],
-                    lod[::2, ::2].contiguous()), height, width)
         else:
             dirs = torch.where(cov[..., None], refl, view_dirs)
             lod = torch.where(cov, lod, torch.zeros_like(lod))
             spec_env = background = sample_environment(env["strips"], dirs,
                                                        lod)
+    elif half and env.get("tiled", True):
+        spec_env = half_res_environment(env["strips"], refl, lod, n.shape[0],
+                                        n.shape[1], covered=cov)
     else:
         spec_env = sample_environment(env["strips"], refl, lod, covered=cov)
     if background is None:

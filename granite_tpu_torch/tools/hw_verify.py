@@ -8,12 +8,12 @@ Checks:
      blown out);
   2. black-tile census: at most 1% of the 32x128 screen tiles may have
      rgb content that is entirely zero;
-  3. the chain ran every frame: render_frames_chained(n) executed the
-     render graph n times, and on the card kernel B2 (the G-buffer
-     raster) launched n times in it.  The JAX tool reads a checksum its
-     chain scans into every frame, a guard against XLA eliminating the
-     scanned frames as dead code; the port's chain is an eager loop with
-     no such checksum, so this check counts what the checksum guarded;
+  3. the chain ran every frame: its checksum (the float32 sum of every
+     chained frame's backbuffer but the last) is present, finite and
+     within 0.5-1.5x of (frames - 1) times the last frame's sum, as in
+     the JAX tool; and render_frames_chained(n) executed the render graph
+     n times, and on the card kernel B2 (the G-buffer raster) launched n
+     times in it;
   4. sequential frame N and chained frame N agree exactly from the same
      initial history (the chain is the timed path: it must render the
      same image).
@@ -105,6 +105,8 @@ def main(argv=None) -> int:
     seq = seq.cpu().numpy()
     app.reset_history()
     chained, executes, b2 = chained_counts(app, args.frames)
+    chk = app._last_chain_checksum
+    chk = float(chk) if chk is not None else None
     on_card = app.device.type == "cuda"
 
     png = os.path.join(args.out, "bench_frame.png")
@@ -134,6 +136,20 @@ def main(argv=None) -> int:
                         f"(zeroed/NaN-clamped sampler rects?)")
 
     # 3. the chain ran every frame
+    if chk is None:
+        failures.append("no chain checksum (the chain ran frame by frame?)")
+    elif not np.isfinite(chk):
+        failures.append(f"chain checksum not finite: {chk}")
+    else:
+        # the frames are static: every chained frame sums like the last
+        # (the exposure history converges fast)
+        per_frame = chained.astype(np.float64).sum()
+        n_summed = args.frames - 1
+        if n_summed and not (0.5 * n_summed * per_frame <= chk
+                             <= 1.5 * n_summed * per_frame):
+            failures.append(
+                f"checksum {chk:.3e} vs ~{n_summed}x frame sum "
+                f"{n_summed * per_frame:.3e}: the chained frames diverge")
     if executes != args.frames:
         failures.append(f"the chain executed the render graph {executes} "
                         f"times for {args.frames} frames")
@@ -153,6 +169,7 @@ def main(argv=None) -> int:
         "device": str(app.device),
         "plane_means": [round(float(m), 3) for m in means],
         "black_tiles": n_black, "total_tiles": n_tiles,
+        "chain_checksum": chk,
         "chain_frames": args.frames,
         "chain_graph_executes": executes,
         "chain_b2_launches": b2 if on_card else None,

@@ -205,7 +205,7 @@ def test_unsupported_knob_raises():
     with pytest.raises(NotImplementedError):
         _render_port({**CONFIGS["deferred_hdr"], "fusedShade": False})
     # (textureStreaming renders: tests/test_torch_streaming.py)
-    for knob in ({"envSpecularHalfRes": True}, {"envTileSampler": False},
+    for knob in ({"rasterMaxVisible": "half"}, {"envTileSampler": False},
                  {"binPlanCache": "true"}):
         with pytest.raises(NotImplementedError):
             _render_port({**CONFIGS["forward_vsm_fxaa"], **knob})
