@@ -40,6 +40,9 @@
         chunk the path bins: exact.
      B4 on that 8x8 face of the volumetric diffuse bake (no lights, no
         shadow map): 3e-4 relative.
+   Then the launch floor: x.add_(1.0) on one float32 timed as the kernels
+   are (a CUDA graph of 20 calls), the least a captured call takes; the
+   kernels JSON carries it as launch_floor_ms.
    Timing: a kernel's ms is device time, CUDA events around the replay
    of a CUDA graph that captured N calls of its wrapper (the wrapper's
    own small torch ops included), after a warm-up call; plain_ms and
@@ -201,6 +204,37 @@
                     scene's total, B2 launched and no triangle dropped,
                     the frame bit-equal to the same frame uncapped, and
                     B2 at that capacity against its plain version.
+     forward_pcf:   BASELINE config 2, the glTF viewer's forward path:
+                    forward_shadow's knobs (forward, no bloom, no
+                    clustered light shadows, no post AA) with a 2048^2
+                    sun map under the 2x2 PCF (no VSM) and the bench cap,
+                    on the bench scene written as .gltf by the port's
+                    exporter at run time and loaded through the viewer's
+                    scene argument (set-up includes the write and the
+                    parse; the triangles, meshes, objects and lights the
+                    viewer took from the file printed), the camera
+                    framing its bounds, orbiting.  B1 at set-up (the
+                    static sun map) and in no timed frame, B2, B3 and B4
+                    in every timed frame, B3T never, every raster counter
+                    0.
+     aa_fxaa, aa_taa, aa_smaa, aa_smaaT2X, aa_fxaa2phase, aa_taa_extreme:
+                    BASELINE config 4, the post-AA suite on the deferred
+                    graph: the bench config with postAA fxaa, taa, smaa,
+                    smaaT2X, fxaa2phase or taa-extreme and nothing else.
+                    Launches at set-up and in each timed frame those of
+                    the deferred path; the graph holds the mode's passes
+                    (the TAA family's taa-resolve before the tonemap, the
+                    LDR pass smaa or fxaa after it) and their device ms
+                    are printed.  The TAA family chains a still, jittered
+                    camera: the jitter phase advances by one a timed
+                    frame and each frame's view-proj moves, and the
+                    history is live (the last timed frame rendered again
+                    from its own history is the same within 8 levels
+                    where, from the graph's initial taa-history, it
+                    differs).  The last backbuffer differs in >= 0.1% of
+                    the pixels from deferred's frame from the same camera:
+                    deferred's last (the same orbit) for fxaa and smaa,
+                    its first timed frame (unyawed) for the TAA family.
      video_player:  `python -m granite_tpu_torch.app.video_player`'s
                     entry point (main) on the card at 1920x1080 with
                     --video-size 1024 over a PNG sequence of VIDEO_COUNT
@@ -215,8 +249,9 @@
                     ms/frame from CUDA events around each frame and from
                     the stat JSON (host clock), decode host ms a frame
                     (VideoSource.read_frame), then 2 traced frames.
-   deferred_post and fsr2 are TAA paths: their chained camera stands
-   still and only the jitter moves, as in the reference's chained TAA.
+   deferred_post, fsr2 and the TAA family's aa_ paths are TAA paths:
+   their chained camera stands still and only the jitter moves, as in the
+   reference's chained TAA.
    The traced frames also give each pass's device time a frame (the
    render graph's `pass:` ranges and the viewer's `decals` range).
    Phase tools, its launches counted from 0 like the compile probe's,
@@ -228,7 +263,8 @@
    frame; its chain checksum finite and within 0.5-1.5x of 3 times the
    last frame's sum); quality_receipt at 1920x1080 (luma PSNR, max abs diff,
    changed share); aa_bench at its defaults (640x360, 16 chained frames,
-   a viewer process a mode) but 4 of its 6 modes, AA_MODES; every mode's
+   a viewer process a mode) but 4 of its 6 modes, AA_MODES (the aa_
+   paths render smaa and smaaT2X at 1920x1080); every mode's
    PNG through the image gate; us and PSNR a mode); sweep_scene with the bench config,
    SWEEP_ITERATIONS iterations at its defaults (1280x720, 32 frames, a
    viewer process an iteration); gltf_repacker --meshlets
@@ -291,7 +327,11 @@
    deferred_hdr with clusteredLightsShadowsVSM and with msaa 4 +
    renderTargetFp16, deferred_taa_fog with showUi, deferred_hdr and
    forward_vsm_fxaa with rasterMaxVisible "auto" and envSpecularHalfRes
-   from a camera for which auto caps the compaction, each with
+   from a camera for which auto caps the compaction, deferred_taa_fog
+   without the fog volume under postAA smaaT2X, fxaa2phase and
+   taa-extreme (as tests/test_torch_aa_suite.py holds them against JAX),
+   forward_shadow with postAA none on the test scene written as .gltf by
+   the port's exporter and loaded through the scene argument, each with
    materialTileSampler "true": "auto" takes the tiled routes on the card
    only (the VSM term through B3T, the full-resolution specular
    environment), and "true" sends the CPU down the same ones.  Then
@@ -309,13 +349,14 @@ Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
 1080p bench-shape case, the other cases under "cases", max_abs_err over
 every case of the kernel, launches summed over the main paths and per
-path, the compiler's attributes; the tools phase's numbers under
-"tools", the host subsystems' under "host_subsystems"), the card, then
-the result.
+path, the compiler's attributes; launch_floor_ms; the tools phase's
+numbers under "tools", the host subsystems' under "host_subsystems"),
+the card, then the result.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import sys
@@ -391,7 +432,7 @@ BAKE_SIZE, BAKE_SAMPLES, BAKE_REL_GATE = 256, 64, 1e-4
 # to f32), sweep_scene's iterations, aa_bench's modes.  With aa_bench's
 # 6 default modes (a viewer process each, ~15.7 s) the phase took 156.1 s
 # on an NVIDIA H100 80GB HBM3 at 700 W, past its 150 s: smaa and smaaT2X
-# are cut.
+# are cut (the aa_ main paths render both at 1920x1080).
 BRDF_CHECK_SIZE, BRDF_GATE = 64, 1e-6
 SWEEP_ITERATIONS = 2
 AA_MODES = ("none", "fxaa", "taa", "taaFSR2")
@@ -419,6 +460,24 @@ SPHERES_W, SPHERES_H = 1920, 1088
 AUTO_CONFIG = {**BENCH_CONFIG, "rasterMaxVisible": "auto",
                "envSpecularHalfRes": True}
 WALL_EYE, WALL_TARGET = (0.0, 2.0, 0.0), (20.0, 2.0, 0.0)
+# BASELINE config 2, the glTF viewer's forward path: forward_shadow's knobs
+# (tests/golden_utils.py: forward, no bloom, no clustered light shadows, no
+# post AA) with a 2048^2 sun map under the 2x2 PCF (no VSM) and the bench
+# cap, on the bench scene written as .gltf by the port's exporter.
+FORWARD_PCF_CONFIG = {"renderer": "forward", "hdrBloom": False,
+                      "shadowMapResolution": 2048,
+                      "clusteredLightsShadows": False, "postAA": "none",
+                      "rasterMaxVisible": 163840}
+# BASELINE config 4, the post-AA suite on the deferred graph: aa_bench's
+# modes but none and taaFSR2 (the deferred and fsr2 paths), and the
+# viewer's two other TAA-family modes; an aa_ path a mode.  The TAA family
+# jitters the camera and resolves against its history before the tonemap;
+# the LDR modes run their pass (smaa or fxaa) after it.
+AA_PATH_MODES = ("fxaa", "taa", "smaa", "smaaT2X", "fxaa2phase",
+                 "taa-extreme")
+TAA_FAMILY = ("taa", "smaaT2X", "fxaa2phase", "taa-extreme")
+LDR_AA_PASS = {"fxaa": "fxaa", "fxaa2phase": "fxaa", "smaa": "smaa",
+               "smaaT2X": "smaa"}
 # A chain's checksum (the float32 sum of its frames but the last, on the
 # device) against the float64 sum of the same frames: JAX's contract.
 CHECKSUM_REL_GATE = 1e-3
@@ -436,47 +495,63 @@ MAIN_PATHS = {"deferred": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
               "msaa": (MSAA_CONFIG, ("B1", "B2", "B3", "B4")),
               "streaming": (STREAM_CONFIG, ("B1", "B2", "B3", "B4")),
               "baked_env": (BENCH_CONFIG, ("B1", "B2", "B3", "B4")),
-              "auto_halfspec": (AUTO_CONFIG, ("B1", "B2", "B3", "B4"))}
+              "auto_halfspec": (AUTO_CONFIG, ("B1", "B2", "B3", "B4")),
+              "forward_pcf": (FORWARD_PCF_CONFIG, ("B1", "B2", "B3", "B4")),
+              **{f"aa_{mode.replace('-', '_')}": (
+                  {**BENCH_CONFIG, "postAA": mode}, ("B1", "B2", "B3", "B4"))
+                 for mode in AA_PATH_MODES}}
 # Golden configs checked card against CPU: label -> (config name, with a
-# decal node, on the animated `.scene`, knobs added, camera (eye, target)
-# or None).  Each runs with materialTileSampler "true", so both devices
-# take the tiled routes.
-CROSS_DEVICE = {name: (name, False, False, {}, None) for name in (
+# decal node, scene file (None: the procedural test scene; "anim.scene":
+# the small animated `.scene` through its camera 0; "test.gltf": the test
+# scene written by the port's exporter, the camera framing its bounds),
+# knobs added, camera (eye, target) or None).  Each runs with
+# materialTileSampler "true", so both devices take the tiled routes.
+CROSS_DEVICE = {name: (name, False, None, {}, None) for name in (
     "deferred_hdr", "forward_shadow", "deferred_smaa", "forward_vsm_fxaa",
     "deferred_taa_fog", "deferred_fsr2", "deferred_ssao_ssr",
     "deferred_ocean_ground", "deferred_decals", "deferred_meshlet")}
 CROSS_DEVICE["deferred_decals one decal node"] = (
-    "deferred_decals", True, False, {}, None)
+    "deferred_decals", True, None, {}, None)
 CROSS_DEVICE["deferred_hdr gltf_animated scene"] = (
-    "deferred_hdr", False, True, {}, None)
+    "deferred_hdr", False, "anim.scene", {}, None)
 # (behind the test scene's ring, where its near object hides seven)
 CROSS_DEVICE["deferred_hdr occlusionCulling"] = (
-    "deferred_hdr", False, False, {"occlusionCulling": True},
+    "deferred_hdr", False, None, {"occlusionCulling": True},
     ((6.5, 1.1, 0.0), (0.0, 1.2, 0.0)))
 CROSS_DEVICE["deferred_taa_fog fog regions + volumetric diffuse"] = (
-    "deferred_taa_fog", False, False,
+    "deferred_taa_fog", False, None,
     {"volumetricFogRegions": True, "volumetricDiffuse": True,
      "volumetricDiffuseResolution": 2, "volumetricDiffuseFaceResolution": 8},
     None)
 CROSS_DEVICE["forward_shadow cascades + PCFKernelWide"] = (
-    "forward_shadow", False, False,
+    "forward_shadow", False, None,
     {"directionalLightShadowsCascaded": True, "PCFKernelWide": True}, None)
 CROSS_DEVICE["deferred_hdr clusteredLightsShadowsVSM"] = (
-    "deferred_hdr", False, False, {"clusteredLightsShadowsVSM": True}, None)
+    "deferred_hdr", False, None, {"clusteredLightsShadowsVSM": True}, None)
 CROSS_DEVICE["deferred_hdr msaa 4 + renderTargetFp16"] = (
-    "deferred_hdr", False, False, {"msaa": 4, "renderTargetFp16": True},
+    "deferred_hdr", False, None, {"msaa": 4, "renderTargetFp16": True},
     None)
 CROSS_DEVICE["deferred_taa_fog showUi"] = (
-    "deferred_taa_fog", False, False, {"showUi": True}, None)
+    "deferred_taa_fog", False, None, {"showUi": True}, None)
 # (toward the sphere at (3.54, 1, -3.54): the culling census keeps 4,646
 # of the test scene's 10,866 triangles, and auto caps the compaction at
 # 8,192)
 CROSS_DEVICE.update({
     f"{golden} rasterMaxVisible auto + envSpecularHalfRes": (
-        golden, False, False,
+        golden, False, None,
         {"rasterMaxVisible": "auto", "envSpecularHalfRes": True},
         ((8.0, 2.5, 1.5), (3.54, 1.0, -3.54)))
     for golden in ("deferred_hdr", "forward_vsm_fxaa")})
+# The TAA family's other members as tests/test_torch_aa_suite.py holds
+# them against JAX (deferred_taa_fog without the fog volume), and config
+# 2's knobs on a glTF file.
+CROSS_DEVICE.update({
+    f"deferred_taa_fog postAA {aa}": (
+        "deferred_taa_fog", False, None,
+        {"postAA": aa, "volumetricFog": False}, None)
+    for aa in ("smaaT2X", "fxaa2phase", "taa-extreme")})
+CROSS_DEVICE["forward_shadow from test.gltf"] = (
+    "forward_shadow", False, "test.gltf", {"postAA": "none"}, None)
 # The video player: VIDEO_COUNT seeded frames of VIDEO_BLOCK-px blocks
 # (frame i bright in channel i % 3), rendered at 1920x1080 into a
 # VIDEO_SIZE^2 texture; the frame ring VIDEO_RING deep; the quad covers
@@ -897,6 +972,23 @@ def b5_cases() -> dict:
         cases.append(dict(case=f"n_iters {n} {shape[0]}x{shape[1]}",
                           max_abs_err=0.0, ms=ms, plain_ms=pms, **b))
     return dict(cases[0], cases=cases[1:])
+
+
+def launch_floor() -> float:
+    """The timing harness's floor: device_ms of a one-element torch op
+    (x.add_(1.0) on one float32, CUDA graph of 20 calls), the least a
+    captured call of any wrapper can take; below it a kernel's time is its
+    launch, not its work.  The graph's replays must reach x."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    reps = 20
+    ms = device_ms(lambda: x.add_(1.0), reps)
+    # device_ms: one warm call, one warm replay and one timed replay
+    n = float(x.item())
+    log(f"launch floor: x.add_(1.0) on one float32 in a CUDA graph of "
+        f"{reps} calls {ms:.5f} ms a call ({n:g} adds reached x)")
+    check(n == 1 + 2 * reps, f"the launch floor's graph added {n} times")
+    return ms
 
 
 def view_setup(app, clip, object_mask, width: int, height: int):
@@ -1401,15 +1493,20 @@ def decal_check(app) -> dict:
                 meshlet_meshes=app.meshlet_meshes)
 
 
+def counters_zero(stats: dict, name: str) -> None:
+    """Every raster pass's overflow and clamp counters read 0."""
+    for pass_name, st in stats.items():
+        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
+            check(st.get(k, 0) == 0, f"{name} {pass_name} {k} = {st.get(k)}")
+
+
 def time_check(app, stats: dict, name: str, t1: float) -> dict:
     """The gates of a time-varying path: the raster overflow and clamp
     counters read 0 (its meshes fit under its raised rasterMaxVisible),
     and from the same history two chained frames at elapsed times 0 and
     t1 differ while two at 0 agree."""
     import torch
-    for pass_name, st in stats.items():
-        for k in ("visible_overflow", "huge_overflow", "clamped_entries"):
-            check(st.get(k, 0) == 0, f"{name} {pass_name} {k} = {st.get(k)}")
+    counters_zero(stats, name)
     hist = app._history
     frames = {}
     for label, t0 in (("a", 0.0), ("b", t1), ("c", 0.0)):
@@ -1907,12 +2004,13 @@ def stream_frames(app, n: int):
     return out
 
 
-def main_path(name: str, results: dict, backbuffers: dict) -> dict:
+def main_path(name: str, results: dict, kept: dict) -> dict:
     """One bench frame path through the kernels; returns its launches
     (gltf_animated, cascades, msaa and streaming add their cases to
-    results; deferred keeps its last backbuffer in backbuffers).  The
-    streaming path renders its frames through stream_frames, the others
-    through chained_frames."""
+    results; deferred keeps in `kept` its last backbuffer, its first timed
+    one and its launches, which the aa_ paths and the host_subsystems
+    phase read).  The streaming path renders its frames through
+    stream_frames, the others through chained_frames."""
     import numpy as np
     import torch
     from granite_tpu_torch.kernels import build as K
@@ -1934,6 +2032,8 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
                                      ANIM_TARGET)
         app = make_app(cfg, False, "cuda", scene=scene, camera_index=0)
         files.cleanup()
+    elif name == "forward_pcf":
+        app = forward_pcf_app(cfg)
     elif name in ("occlusion", "cascades"):
         app = walkthrough_app(cfg)
     elif streaming:
@@ -1974,7 +2074,7 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     # held against them) and compaction capacity; under occlusion culling
     # also each frame's cull counts (on the device) and its params and
     # history
-    frames, culls, kept, last, outs, caps = [], [], [], {}, [], []
+    frames, culls, visible, last, outs, caps = [], [], [], {}, [], []
     execute = app.graph.execute
 
     def counted(params, history):
@@ -1983,13 +2083,16 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
         frames.append({k: K.LAUNCHES[k] - before[k] for k in before})
         outs.append(result[0])
         caps.append(app._resolved_max_visible())
-        last["params"] = params
+        last["params"], last["history"] = params, history
+        last.setdefault("view_proj", []).append(params.get("view_proj"))
         if app.config.occlusion_culling:
             culls.append(dict(app.cull_counts))
-            kept.append((params, history, result[0]))
+            visible.append((params, history, result[0]))
         return result
 
     app.graph.execute = counted
+    setup_launches = dict(K.LAUNCHES)
+    phase0 = app._jitter.phase if app._jitter is not None else None
     t1 = time.monotonic()
     start.record()
     out = run(app, FRAMES)
@@ -2001,12 +2104,17 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     del app.graph.execute
     if not streaming:
         checksum_check(app, name, outs)
+    if name == "deferred":
+        # the aa_ paths' yardsticks (and the host_subsystems phase's pyro
+        # frames, the last backbuffer)
+        kept.update(deferred_still=outs[0].cpu(),
+                    deferred_setup=setup_launches, deferred_frames=frames)
     del outs
     b1_frames = [f["B1"] for f in frames]
     busy_ms, ranges = device_busy_ms(app, TRACED_FRAMES, run)
     img = out.cpu().numpy()
     if name == "deferred":
-        backbuffers[name] = img     # the host_subsystems phase's pyro frames
+        kept[name] = img
     ok, means = image_gate(img)
     stats = app.frame_stats()
     # Under TAA render_frames_chained ignores camera_orbit, as the
@@ -2024,10 +2132,8 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     log(f"device ms a frame by range {name} "
         f"{ {k: round(v, 4) for k, v in sorted(ranges.items())} }")
     log(f"launches {name} {launches}; B1 in each of the {FRAMES} timed "
-        f"frames {b1_frames}" + (
-            "; B2/B3/B4 in each "
-            f"{[(f['B2'], f['B3'], f['B4']) for f in frames]}"
-            if name in ("msaa", "streaming") else ""))
+        f"frames {b1_frames}; B2/B3/B4 in each "
+        f"{[(f['B2'], f['B3'], f['B4']) for f in frames]}")
     # max_bin_entries and the overflow/clamp counters: printed, gated only
     # on the time-varying paths (the reference clamps and drops the same
     # way; the port counts)
@@ -2035,8 +2141,8 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
     if name == "ocean_ground":
         time_check(app, stats, "ocean", 5.0)
     if name == "occlusion":
-        occlusion_check(app, stats, b1_frames, culls, kept)
-        del culls, kept
+        occlusion_check(app, stats, b1_frames, culls, visible)
+        del culls, visible
     if name == "volumetric":
         volumes_check(app)
     if name == "cascades":
@@ -2051,6 +2157,12 @@ def main_path(name: str, results: dict, backbuffers: dict) -> dict:
         baked_env_check(app, default_env, last["params"], results)
     if name == "auto_halfspec":
         auto_halfspec_check(app, caps, last["params"], results)
+    if name == "forward_pcf":
+        forward_pcf_check(app, stats, frames, setup_launches, launches)
+    if name.startswith("aa_"):
+        aa_check(app, name, cfg["postAA"], frames, setup_launches, ranges,
+                 last, phase0, out, kept)
+    del last
     if name == "gltf_animated":
         check(len(b1_frames) == FRAMES and min(b1_frames) >= 1,
               f"B1 launches in the {FRAMES} timed frames: {b1_frames}")
@@ -2160,6 +2272,116 @@ def auto_halfspec_check(app, caps: list, params, results: dict) -> None:
     add_case(results, "B2", case)
     del wall, params, _planes, _cov
     torch.cuda.empty_cache()
+
+
+def forward_pcf_app(cfg: dict):
+    """forward_pcf's viewer: the bench scene written as .gltf by the port's
+    exporter (KHR_lights_punctual for its lights) and loaded through the
+    viewer's scene argument, the camera framing its bounds as the bench
+    viewer's does; prints what the viewer took from the file."""
+    from granite_tpu_torch.app.bench_scene import build_bench_scene
+    from granite_tpu_torch.scene_export import export_gltf
+    files = tempfile.TemporaryDirectory()
+    path = os.path.join(files.name, "bench.gltf")
+    t = time.monotonic()
+    export_gltf(build_bench_scene(), path)
+    write_s = time.monotonic() - t
+    app = make_app(cfg, False, "cuda", scene=path)
+    files.cleanup()
+    kinds = dict(collections.Counter(light.type for light in app.info.lights))
+    log(f"forward_pcf: bench scene written as .gltf in {write_s:.2f} s; "
+        f"the viewer took {int(app.packed.indices.shape[0])} triangles, "
+        f"{len(app.info.meshes)} meshes, {app.packed.num_objects} objects "
+        f"and {len(app.info.lights)} lights (by type {kinds}; "
+        f"{len(app._positional_lights())} positional) from the file")
+    return app
+
+
+def forward_pcf_check(app, stats: dict, frames: list, setup: dict,
+                      launches: dict) -> None:
+    """forward_pcf's gates: B1 at set-up (the static 2048^2 sun map) and in
+    no timed frame (the cached map), B2, B3 and B4 in every timed frame,
+    B3T never (the sun term is the PCF, not VSM), every raster counter 0."""
+    per_frame = [(f["B1"], f["B2"], f["B3"], f["B3T"], f["B4"])
+                 for f in frames]
+    log(f"forward_pcf: B1 {setup['B1']} at set-up; (B1, B2, B3, B3T, B4) in "
+        f"each timed frame {per_frame}; B3T in all {launches['B3T']}; the "
+        f"sun map {int(app.config.shadow_map_resolution)}^2, VSM "
+        f"{app.config.directional_light_shadows_vsm}, graph "
+        f"{app.graph._order}")
+    check(setup["B1"] >= 1 and setup["B3T"] == 0,
+          f"forward_pcf's set-up launches {setup}")
+    check(len(frames) == FRAMES and all(
+        f["B1"] == 0 and f["B3T"] == 0 and min(f["B2"], f["B3"], f["B4"]) >= 1
+        for f in frames), f"forward_pcf's timed frames {per_frame}")
+    check(launches["B3T"] == 0, f"forward_pcf launched B3T {launches['B3T']}")
+    counters_zero(stats, "forward_pcf")
+
+
+def aa_check(app, name: str, mode: str, frames: list, setup: dict,
+             ranges: dict, last: dict, phase0, out, kept: dict) -> None:
+    """An aa_ path's gates.  Its launches at set-up and in each timed frame
+    those of the deferred path.  The graph holds the mode's passes: the
+    TAA family's taa-resolve before the tonemap, the LDR pass (smaa or
+    fxaa) after it, and no other AA pass.  Under the TAA family the jitter
+    phase advanced by one a timed frame, each frame's jittered view-proj
+    differs from the one before, and the history is live: the last timed
+    frame rendered again from its own history is the same within 8 levels
+    where, with its taa-history put back to the graph's initial history,
+    it differs.  The last backbuffer differs from the deferred path's
+    frame from the same camera (the last of the same orbit; the TAA
+    chain holds the camera still, so for the TAA family deferred's first
+    timed frame, which is unyawed) in >= MIN_CHANGED_SHARE of the
+    pixels."""
+    import torch
+    order = app.graph._order
+    taa = mode in TAA_FAMILY
+    ldr = LDR_AA_PASS.get(mode)
+    tonemap = order.index("tonemap")
+    present = [p for p in ("taa-resolve", "fxaa", "smaa") if p in order]
+    log(f"{name} ({mode}): AA passes {present} in {order}; device ms a "
+        f"frame {({p: round(ranges.get(f'pass:{p}', float('nan')), 4)
+                   for p in present})}")
+    want = (["taa-resolve"] if taa else []) + ([ldr] if ldr else [])
+    check(sorted(present) == sorted(want),
+          f"{name}'s AA passes {present}, want {want}")
+    check(not taa or order.index("taa-resolve") < tonemap,
+          f"{name}: taa-resolve after the tonemap in {order}")
+    check(not ldr or order.index(ldr) > tonemap,
+          f"{name}: {ldr} before the tonemap in {order}")
+    check(setup == kept["deferred_setup"] and frames
+          == kept["deferred_frames"], f"{name}'s launches at set-up {setup} "
+          f"and a timed frame {frames} are not deferred's "
+          f"{kept['deferred_setup']} {kept['deferred_frames']}")
+    if taa:
+        steps = app._jitter.phase - TRACED_FRAMES - phase0
+        vps = last["view_proj"]
+        moves = sum(not torch.equal(a, b) for a, b in zip(vps, vps[1:]))
+        check(steps == FRAMES and moves == FRAMES - 1,
+              f"{name}: the jitter stepped {steps} times in {FRAMES} timed "
+              f"frames, the view-proj moved {moves} times")
+        params, history = last["params"], last["history"]
+        again = app.graph.execute(params, history)[0]
+        fresh = dict(history, **{"taa-history": app.graph.initial_history(
+            app.device)["taa-history"]})
+        reset = app.graph.execute(params, fresh)[0]
+        torch.cuda.synchronize()
+        still = backbuffer_diff(out, again)
+        moved = backbuffer_diff(out, reset)
+        log(f"{name}: the last timed frame again from its history differs "
+            f"in {still} pixels, from the initial taa-history in {moved} "
+            f"(of {WIDTH * HEIGHT}); jitter phase {phase0} -> "
+            f"{app._jitter.phase} (the {TRACED_FRAMES} traced frames too) "
+            f"over a {len(app._jitter.phases)}-phase table")
+        check(moved > 0 and still * 100 <= moved,
+              f"{name}'s TAA history is not live ({moved} vs {still} pixels)")
+    ref = kept["deferred_still" if taa else "deferred"]
+    changed = backbuffer_diff(out.cpu(), torch.as_tensor(ref))
+    need = int(MIN_CHANGED_SHARE * WIDTH * HEIGHT) + 1
+    log(f"{name}: the last backbuffer differs from deferred's "
+        f"{'unyawed first timed' if taa else 'last'} frame in {changed} "
+        f"pixels ({changed / (WIDTH * HEIGHT):.4%})")
+    check(changed >= need, f"{name} changed {changed} < {need} pixels")
 
 
 def resident(app) -> bool:
@@ -3145,18 +3367,21 @@ def cross_device() -> None:
     import torch
     from golden_utils import CONFIGS, psnr     # numpy only, no jax
     from granite_tpu_torch.app.bench_scene import build_default_test_scene
+    from granite_tpu_torch.scene_export import export_gltf
     files = tempfile.TemporaryDirectory()
-    scene = write_animated_scene(files.name, build_default_test_scene(),
-                                 [(2.5, 1.2, 2.5)], (-2.5, 0.1, 2.5),
-                                 (7.0, 5.5, 9.0), (0.0, 0.8, 0.0))
-    for name, (golden, decal_node, animated, knobs, camera) in \
+    write_animated_scene(files.name, build_default_test_scene(),
+                         [(2.5, 1.2, 2.5)], (-2.5, 0.1, 2.5),
+                         (7.0, 5.5, 9.0), (0.0, 0.8, 0.0))
+    export_gltf(build_default_test_scene(),
+                os.path.join(files.name, "test.gltf"))
+    for name, (golden, decal_node, scene, knobs, camera) in \
             CROSS_DEVICE.items():
         cfg = {**CONFIGS[golden], **knobs, "materialTileSampler": "true"}
         imgs = {}
         for device in ("cuda", "cpu"):
             app = make_app(cfg, False, device,
-                           scene=scene if animated else None,
-                           camera_index=0 if animated else -1)
+                           scene=scene and os.path.join(files.name, scene),
+                           camera_index=0 if scene == "anim.scene" else -1)
             if camera is not None:
                 app.camera.look_at(*(np.asarray(c, np.float32)
                                      for c in camera))
@@ -3192,12 +3417,13 @@ def main() -> int:
     results: dict = {}
     kernel_phases(results)
     slice_kernel_phases(results)
+    floor_ms = launch_floor()
     log(f"phases 1-2 took {time.monotonic() - t_start:.1f} s")
     by_path = {"compile_probe": probe_launches}
-    backbuffers: dict = {}
+    kept: dict = {}
     for name in MAIN_PATHS:
         t = time.monotonic()
-        by_path[name] = main_path(name, results, backbuffers)
+        by_path[name] = main_path(name, results, kept)
         log(f"phase 3 path {name} took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     video = tempfile.TemporaryDirectory()
@@ -3214,7 +3440,7 @@ def main() -> int:
     log(f"phase tools took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     by_path["host_subsystems"], host = host_subsystems(
-        backbuffers.pop("deferred"))
+        kept.pop("deferred"))
     log(f"phase host_subsystems took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
     by_path["parallel"], by_path["parallel_nccl"], parallel = \
@@ -3244,7 +3470,9 @@ def main() -> int:
     print(json.dumps({
         "timing": "ms: device time, CUDA graph of N wrapper calls replayed "
                   "between CUDA events; plain_ms: CUDA events around N "
-                  "calls; library_ms: as ms",
+                  "calls; library_ms: as ms; launch_floor_ms: as ms, "
+                  "x.add_(1.0) on one float32",
+        "launch_floor_ms": floor_ms,
         "compile_probe": probe_result, "triangle_demo": triangle,
         "tools": tools, "host_subsystems": host, "parallel": parallel,
         "kernels": kernels}))
