@@ -32,7 +32,17 @@
    tile column; B2 with the previous-position planes, as under TAA), at
    the same gates.  B1 and B2 are compared on the whole padded target.
      B5 the compile probe's body at its four shapes (n_iters 96-99 over
-        (256-640, 256) f32): bit-equal.
+        (256-640, 256) f32), at (37, 53) (numel not a multiple of 4) and
+        on a contiguous view 4 bytes past its allocation: bit-equal
+        (torch.equal); and a chain of eight calls, each reading the output
+        of the one before (a programmatic launch that did not wait for
+        it would read stale memory), captured in a CUDA graph and
+        replayed on fresh inputs: bit-equal.  Each case also timed as the
+        probe calls it (ms_synced: one call between CUDA events, then a
+        sync) and held to its latency/issue floor (latency_bound_ms:
+        compile_parallel_probe.latency_bound on the FMUL/FADD count of
+        the instance's SASS, from cuobjdump, at the SM's max clock from
+        nvidia-smi; no launch term).
      B1 on the occlusion path's phase 1 at 1920x1080 (CULL_BACK, the
         main camera, last frame's visible set) and on the volumetric
         path's 8x8 bake face with the most valid triangles (one tile, a
@@ -686,6 +696,26 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def synced_ms(fn, reps: int) -> float:
+    """The median milliseconds of `reps` single calls (one warm call
+    first), each between CUDA events with a sync after it: what a caller
+    that waits for each result sees, launch included."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -948,29 +978,128 @@ def b4_compare(args, kkw, label: str) -> dict:
     return dict(case=label, max_abs_err=err, ms=ms, plain_ms=pms, **b)
 
 
-def b5_cases() -> dict:
-    """B5 against its plain version at the JAX probe's four shapes, on
-    seeded inputs on the card: bit-equal.  Bound: x read once and the
-    output written once, 2 n_iters FP32 ops an element; either is far
-    under a launch's latency at these sizes."""
+def sm_max_clock_mhz() -> float:
+    """The max SM clock in MHz of torch's card 0: the `nvidia-smi
+    --query-gpu=uuid,clocks.max.sm` line whose UUID is that card's (under
+    CUDA_VISIBLE_DEVICES nvidia-smi's card 0 may be another)."""
+    import subprocess
+    import torch
+    def bare(uuid) -> str:
+        return str(uuid).strip().lower().removeprefix("gpu-")
+    want = bare(torch.cuda.get_device_properties(0).uuid)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=uuid,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    mhz = [float(clock) for uuid, clock in
+           (line.split(",") for line in out.stdout.strip().splitlines())
+           if bare(uuid) == want]
+    check(len(mhz) == 1, f"nvidia-smi lists {len(mhz)} cards of UUID {want}")
+    return mhz[0]
+
+
+def b5_chains() -> dict:
+    """n_iters -> the FMUL + FADD count of B5's instance in the built
+    library's SASS: the dependent chain of one element.  Fails on an FFMA
+    (a contracted multiply-add would part from the plain version)."""
+    from granite_tpu_torch.kernels import build as K
+    from granite_tpu_torch.tools import compile_parallel_probe as CP
+    sass = K.sass_counts(K.library_path())
+    chains = {}
+    for n in CP.PROBE_SHAPES:
+        fn = [v for k, v in sass.items()
+              if f"compile_probe_kernelILi{n}E" in k]
+        check(len(fn) == 1, f"B5 n_iters {n}: {len(fn)} SASS functions")
+        check(fn[0]["FFMA"] == 0, f"B5 n_iters {n}: FFMA in its SASS")
+        chains[n] = fn[0]["FMUL"] + fn[0]["FADD"]
+    log(f"B5 SASS FMUL+FADD (the chain of one element): {chains}")
+    return chains
+
+
+def b5_chain_ok(fn, replays: int = 8) -> bool:
+    """fn(x, n_iters) chained eight deep (n_iters 96-99, twice), each call
+    reading the output of the one before it, captured in one CUDA graph
+    and replayed on `replays` fresh seeded inputs copied into x: is every
+    replay bit-equal to the plain chain?  Each B5 in the graph is launched
+    while the one before it ends (programmatic dependent launch); one that
+    read its input before that kernel's writes landed would read the last
+    replay's values, or the pool's, and differ."""
     import torch
     from granite_tpu_torch.tools import compile_parallel_probe as CP
+    order = list(CP.PROBE_SHAPES) * 2
+
+    def chain(z, body):
+        for n in order:
+            z = body(z, n)
+        return z
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((640, 256), generator=g, device="cuda") * 4.0 - 2.0
+    chain(x, fn)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chain(x, fn)
+    ok = True
+    for _ in range(replays):
+        x.copy_(torch.rand(x.shape, generator=g, device="cuda") * 4.0 - 2.0)
+        graph.replay()
+        ok = torch.equal(out, chain(x, CP.probe_body_plain)) and ok
+    del graph
+    return ok
+
+
+def b5_cases() -> dict:
+    """B5 against its plain version on seeded inputs on the card, bit-equal
+    (torch.equal): the JAX probe's four shapes, (37, 53) with n_iters 96
+    and a contiguous 65,536-element view 4 bytes past its allocation with
+    n_iters 97; and b5_chain_ok.  Each case: ms (device_ms, a CUDA graph
+    of 20 calls back to back), ms_synced (synced_ms, 30 single calls, each
+    synced: the probe's own pattern), the roofline bound (x read once
+    and the output written once, 2 n_iters FP32 ops an element) and
+    latency_bound_ms (CP.latency_bound: the SASS chain, this card's SMs
+    and max SM clock), with both shares."""
+    import torch
+    from granite_tpu_torch.tools import compile_parallel_probe as CP
+    clock = sm_max_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chains = b5_chains()
     g = torch.Generator(device="cuda").manual_seed(5)
+    inputs = [(n, torch.rand(shape, generator=g, device="cuda") * 4.0 - 2.0,
+               f"n_iters {n} {shape[0]}x{shape[1]}")
+              for n, shape in CP.PROBE_SHAPES.items()]
+    inputs.append((96, torch.rand((37, 53), generator=g, device="cuda")
+                   * 4.0 - 2.0, "n_iters 96 37x53"))
+    base = torch.rand(65_537, generator=g, device="cuda") * 4.0 - 2.0
+    check(base[1:].data_ptr() % 16 == 4, "B5's offset view is not 4 B off")
+    inputs.append((97, base[1:], "n_iters 97 65536 at +4 B"))
+    check(b5_chain_ok(CP.probe_body),
+          "B5 chained in a CUDA graph differs from plain")
+    log("B5 chained 8 deep in a CUDA graph, 8 fresh inputs: bit-equal")
     cases = []
-    for n, shape in CP.PROBE_SHAPES.items():
-        x = torch.rand(shape, generator=g, device="cuda") * 4.0 - 2.0
+    for n, x, label in inputs:
         o_k = CP.probe_body(x, n)
         o_p = CP.probe_body_plain(x, n)
         torch.cuda.synchronize()
-        check(torch.equal(o_k, o_p), f"B5 n_iters {n} differs from plain")
+        check(torch.equal(o_k, o_p), f"B5 {label} differs from plain")
         ms = device_ms(lambda: CP.probe_body(x, n), 20)
+        ms_sync = synced_ms(lambda: CP.probe_body(x, n), 30)
         pms = host_ms(lambda: CP.probe_body_plain(x, n), 3)
         b = bound(nbytes(x, o_k), 2 * n * x.numel())
-        log(f"B5 n_iters {n} {shape}: bit-equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.3f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
-            f"{b['bytes']} B, {b['ops']} ops; far under a launch's latency)")
-        cases.append(dict(case=f"n_iters {n} {shape[0]}x{shape[1]}",
-                          max_abs_err=0.0, ms=ms, plain_ms=pms, **b))
+        lat = CP.latency_bound(chains[n], x.numel(), sms, clock)
+        log(f"B5 {label}: bit-equal; kernel {ms:.5f} ms, synced "
+            f"{ms_sync:.5f} ms, plain {pms:.3f} ms; bound {b['bound_ms']:.5f} "
+            f"ms ({b['bound_by']}; {b['bytes']} B, {b['ops']} ops; share "
+            f"{b['bound_ms'] / ms:.3f}); latency bound "
+            f"{lat['latency_bound_ms']:.5f} ms ({lat['latency_bound_by']}: "
+            f"chain {chains[n]} x {CP.FP32_DEPENDENT_CYCLES} cycles "
+            f"{lat['chain_ms']:.5f} ms, issue {lat['issue_ms']:.5f} ms at "
+            f"{clock:g} MHz on {sms} SMs; share "
+            f"{lat['latency_bound_ms'] / ms:.3f})")
+        cases.append(dict(case=label, max_abs_err=0.0, ms=ms,
+                          ms_synced=ms_sync, plain_ms=pms, **b,
+                          share=b["bound_ms"] / ms, **lat,
+                          latency_share=lat["latency_bound_ms"] / ms,
+                          chain=chains[n], sm_clock_mhz=clock, sms=sms))
     return dict(cases[0], cases=cases[1:])
 
 
@@ -1028,7 +1157,8 @@ def walkthrough_app(cfg: dict):
 
 
 def slice_kernel_phases(results: dict) -> None:
-    """B5 at the probe's shapes; B1 on the occlusion path's phase 1 at
+    """B5 at the probe's shapes and its edge cases; B1 on the occlusion
+    path's phase 1 at
     1920x1080 (after one culled frame, so its visible set is last
     frame's); B1 and B4 on the 8x8 face of the volumetric path's bake
     (the viewer's default volume over the bench scene, (8, 2, 8) probes)

@@ -14,11 +14,30 @@
 // whatever the flags: a contracted FMA would part from the plain version
 // (a torch mul, then add, N times).
 //
-// Bound: at N = 96-99 the kernel does 2N FP32 ops for every 8 bytes it
-// moves (~25 ops a byte, over the card's ~20), so operations bound it
-// by a little; at the probe's sizes (65,536-163,840 elements) either
-// bound is a fraction of a microsecond, far under a launch's latency.
-// A grid-stride loop with coalesced loads is all the design needs.
+// What bounds it.  Not bytes or FLOPs: at the probe's sizes (65,536-
+// 163,840 elements) the roofline bound is 0.2-0.5 us.  An element is a
+// chain of 2N dependent FMUL/FADD (the SASS holds exactly 2N and no
+// FFMA), ~4 cycles each: 768-792 cycles.  The card issues 128 FP32
+// instructions a cycle on each SM, so 2N x numel instructions take
+// 745-1,920 cycles over 132 SMs.  The larger of the two is the floor
+// (chip_smoke.py's latency_bound_ms); the launch comes on top of it.
+//
+// The design.  One element a thread and 256 threads a block, one block
+// for every 256 elements: at the probe's sizes that is one wave of
+// 256-640 blocks, 4-10 warps on each of the SM's four schedulers, enough
+// to issue one chain's step while the others wait out their latency.
+// More chains a thread (2 or 4, float2/float4 loads) give no gain: the
+// instruction count is the same and fewer warps balance worse over the
+// schedulers (measured on an H100: PERF.md).
+// What it does attack is the launch: the kernel is launched with
+// programmatic dependent launch (Hopper), so it is scheduled while the
+// kernel before it on the stream is still running; cudaGridDependency-
+// Synchronize holds every thread until that kernel has finished and its
+// writes are visible, before x is read.  The trigger after the store lets
+// the next such kernel do the same.  Stream capture keeps the
+// programmatic edge, so the CUDA graphs that time the kernels see it too.
+// The gain is only there for launches back to back: a caller that syncs
+// after each call, as the compile probe does, sees the launch as before.
 
 #include <cuda_runtime.h>
 
@@ -27,15 +46,14 @@
 namespace granite {
 
 constexpr int PROBE_THREADS = 256;
-constexpr int PROBE_MAX_BLOCKS = 132 * 8;
 
 template <int N>
 __global__ void __launch_bounds__(PROBE_THREADS)
     compile_probe_kernel(const float* __restrict__ x, float* __restrict__ out,
                          long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
+  cudaGridDependencySynchronize();
+  const long long i = (long long)blockIdx.x * PROBE_THREADS + threadIdx.x;
+  if (i < n) {
     float acc = x[i];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -43,16 +61,28 @@ __global__ void __launch_bounds__(PROBE_THREADS)
     }
     out[i] = acc;
   }
+  cudaTriggerProgrammaticLaunchCompletion();
 }
 
 template <int N>
 int launch_compile_probe(const float* x, float* out, long long n,
                          cudaStream_t stream) {
   if (n > 0) {
-    long long blocks = (n + PROBE_THREADS - 1) / PROBE_THREADS;
-    if (blocks > PROBE_MAX_BLOCKS) blocks = PROBE_MAX_BLOCKS;
-    compile_probe_kernel<N>
-        <<<(unsigned)blocks, PROBE_THREADS, 0, stream>>>(x, out, n);
+    cudaLaunchAttribute pdl;
+    pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS));
+    cfg.blockDim = dim3(PROBE_THREADS);
+    cfg.stream = stream;
+    cfg.attrs = &pdl;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        cudaLaunchKernelEx(&cfg, compile_probe_kernel<N>, x, out, n);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the error is returned here
+      return (int)err;
+    }
   }
   return (int)cudaGetLastError();
 }

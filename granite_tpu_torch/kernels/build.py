@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import re
 import subprocess
 from pathlib import Path
 
@@ -215,6 +216,38 @@ def kernel_attributes(entry: str, variant: int = 0) -> dict:
         raise RuntimeError(f"{entry} failed: cudaError {err}")
     return {"registers": out[0], "local_bytes": out[1],
             "static_shared_bytes": out[2], "max_threads": out[3]}
+
+
+def parse_sass_counts(sass: str, ops=("FMUL", "FADD", "FFMA")) -> dict:
+    """`cuobjdump -sass` text -> {mangled kernel name: {op: count}}: each
+    function's instructions whose opcode (modifiers after a dot aside)
+    is one of `ops`, predicated or not."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(ops, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if name and m and m.group(1) in counts[name]:
+            counts[name][m.group(1)] += 1
+    return counts
+
+
+def sass_counts(lib: Path, ops=("FMUL", "FADD", "FFMA")) -> dict:
+    """parse_sass_counts of a built library's SASS (cuobjdump from the
+    CUDA toolkit that holds nvcc).  Raises when it cannot be read."""
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: no cuobjdump beside it")
+    cmd = [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    return parse_sass_counts(proc.stdout, ops)
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -12,9 +12,12 @@ each of the four bodies runs once on the card through the main library's
 B5 (the JAX probe only compiles them).
 
 Kernel B5 (csrc/compile_probe.cu) is the probe's body: acc = acc * 1.0001
-+ i for i in 0 .. n_iters-1, elementwise over (R, 256) f32.  Its wrapper
++ i for i in 0 .. n_iters-1, elementwise over (R, 256) f32, one element
+a thread, launched with programmatic dependent launch.  Its wrapper
 probe_body launches the main library's instance on a CUDA tensor and
 takes the plain PyTorch version probe_body_plain on a CPU tensor.
+latency_bound is the floor it is held to: its dependent chain or its
+instruction issue, whichever is longer.
 
 Run on the card:
   python -m granite_tpu_torch.tools.compile_parallel_probe
@@ -41,6 +44,10 @@ SERIAL, THREADED = (96, 97), (98, 99)
 OVERLAP_SHARE = 0.75
 PROBE_SOURCE = K.CSRC_DIR / "compile_probe.cu"
 PROBE_BUILD_DIR = K.BUILD_DIR / "compile_probe"
+# Hopper's FP32 pipe: cycles from one FMUL/FADD to an instruction that
+# reads its result, and FP32 lanes of an SM (4 schedulers x 32).
+FP32_DEPENDENT_CYCLES = 4
+FP32_LANES_PER_SM = 128
 
 
 def probe_body_plain(x: torch.Tensor, n_iters: int) -> torch.Tensor:
@@ -70,6 +77,24 @@ def probe_body(x: torch.Tensor, n_iters: int) -> torch.Tensor:
     K.launch("B5", "granite_compile_probe", K.ptr(x), K.ptr(out), x.numel(),
              n_iters)
     return out
+
+
+def latency_bound(chain: int, numel: int, sms: int,
+                  clock_mhz: float) -> dict:
+    """B5's latency/issue floor.  `chain`: the dependent FP32
+    instructions of one element (the FMUL/FADD count of the kernel's
+    SASS, 2 n_iters); chain_ms: chain x FP32_DEPENDENT_CYCLES cycles;
+    issue_ms: chain x numel instructions over sms x FP32_LANES_PER_SM
+    lanes a cycle; at an SM clock of clock_mhz.  latency_bound_ms is the
+    larger.  It holds no launch: a launch's cost depends on what runs
+    before it on the stream (programmatic dependent launch hides part of
+    it behind the kernel before), so it is reported beside the bound."""
+    cycle_ms = 1e-3 / clock_mhz
+    chain_ms = chain * FP32_DEPENDENT_CYCLES * cycle_ms
+    issue_ms = chain * numel / (sms * FP32_LANES_PER_SM) * cycle_ms
+    return dict(latency_bound_ms=max(chain_ms, issue_ms),
+                latency_bound_by="chain" if chain_ms >= issue_ms
+                else "issue", chain_ms=chain_ms, issue_ms=issue_ms)
 
 
 def variant_library(n_iters: int):
