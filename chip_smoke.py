@@ -354,14 +354,36 @@
    frames: image gate, and its PNG against the same frame on the CPU.
    Then the video player at VIDEO_SMALL (480x270, --video-size 64) over
    the same frames, card against CPU.
+5. Spans (granite_tpu_torch/utils/timeline_trace.py), after the parallel
+   phase, on each benchmark cell's configuration at its size and on its
+   orbit (forward_pcf at 1920x1080, deferred at 3840x2160; bench.py's
+   ORBIT radius and height, looking at the atrium's centre, 0.01 rad a
+   frame), after 8 warm-up frames: 2 x SPAN_FRAMES frames of the
+   headless loop, a FrameRecorder on every other one (the recorder's on
+   cost: its frame:render against the host ms of the render_frame calls
+   of the frames between, within 10%, and every
+   span named pass:*, frame:* or decals); one frame with the recorder
+   under torch.profiler (up to TRACE_ATTEMPTS until the card's records
+   keep every copy): its cudaMemcpyAsync calls must equal uploads +
+   readbacks + the card's DtoD copies, the Memcpy DtoH ops the
+   readbacks, the Memcpy HtoD ops at most the uploads, and no
+   device-side event may be named frame:*; one frame with the recorder
+   under torch.cuda.set_sync_debug_mode("warn"): the synchronizing calls
+   inside render_frame must equal its readbacks plus its uploads (a copy
+   from pageable host memory synchronizes too); the cell's trace_frames
+   under torch.profiler: each idle gap of the card put down to the
+   innermost span the host was in at its middle, and each stage range's
+   device ms.  Then SPAN_OFF_CALLS empty spans with tracing off: us each,
+   at most 1.  `python3 chip_smoke.py --spans` runs the probe and this
+   phase alone.
 Each phase's wall seconds are printed when it ends.
 Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
 1080p bench-shape case, the other cases under "cases", max_abs_err over
 every case of the kernel, launches summed over the main paths and per
 path, the compiler's attributes; launch_floor_ms; the tools phase's
-numbers under "tools", the host subsystems' under "host_subsystems"),
-the card, then the result.
+numbers under "tools", the host subsystems' under "host_subsystems",
+the spans phase's under "spans"), the card, then the result.
 """
 
 from __future__ import annotations
@@ -632,6 +654,18 @@ KERNELS = {
            tuple(("granite_attrs_compile_probe", v,
                   f"compile_probe_kernel<{96 + v}>") for v in range(4))),
 }
+
+
+# The spans phase: cell -> (MAIN_PATHS config, width, height, traced
+# frames), as in benchmark/traffic/orbit_*.json; the orbit's radius, eye
+# height and look-at point.
+SPAN_CELLS = {"forward_pcf": (1920, 1080, 16), "deferred": (3840, 2160, 12)}
+SPAN_ORBIT_RADIUS, SPAN_EYE_HEIGHT = 55.21653874716373, 25.86809656
+SPAN_LOOK = (0.0, 2.896628, 0.0)
+SPAN_FRAMES = 64
+SPAN_OFF_CALLS = 10**6
+SPAN_ON_COST_GATE = 0.1
+SPAN_OFF_US_GATE = 1.0
 
 
 class SmokeFailure(RuntimeError):
@@ -3492,6 +3526,215 @@ def parallel_phase(results: dict) -> tuple[dict, dict, dict]:
     return launches, nccl[0]["frame"]["launches"], out
 
 
+def sync_calls(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn") -> (its result,
+    the synchronizing CUDA calls it made)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught
+                    if "synchronizing CUDA operation" in str(w.message))
+
+
+SPAN_PREFIXES = ("pass:", "frame:", "decals")
+
+
+def idle_by_span(events) -> dict:
+    """The card's idle gaps over a trace (between its kernels, copies and
+    sets), each put down to the innermost span the host was in at its
+    middle -> {span name: idle s}."""
+    from torch.autograd import DeviceType
+    device = sorted((ev.time_range.start, ev.time_range.end)
+                    for ev in events if ev.device_type == DeviceType.CUDA
+                    and not ev.name.startswith(SPAN_PREFIXES + ("bench:",)))
+    spans = [(ev.time_range.start, ev.time_range.end, ev.name)
+             for ev in events if ev.device_type == DeviceType.CPU
+             and ev.name.startswith(SPAN_PREFIXES)]
+    out: dict = {}
+    end = device[0][1]
+    for a, b in device[1:]:
+        if a > end:
+            mid = 0.5 * (a + end)
+            inner = [(s1 - s0, n) for s0, s1, n in spans if s0 <= mid <= s1]
+            label = min(inner)[1] if inner else "outside the frame's spans"
+            out[label] = out.get(label, 0.0) + (a - end) / 1e6
+        end = max(end, b)
+    return out
+
+
+def span_off_us() -> float:
+    """Microseconds an empty span costs with tracing off."""
+    from granite_tpu_torch.utils.timeline_trace import span
+    t = time.perf_counter()
+    for _ in range(SPAN_OFF_CALLS):
+        with span("off"):
+            pass
+    return 1e6 * (time.perf_counter() - t) / SPAN_OFF_CALLS
+
+
+def spans_cell(name: str) -> dict:
+    """The spans phase on one cell (see the module's docstring, 5)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from granite_tpu_torch.utils.timeline_trace import FrameRecorder
+    width, height, traced = SPAN_CELLS[name]
+    cfg = MAIN_PATHS[name][0]
+    app = forward_pcf_app(cfg) if name == "forward_pcf" \
+        else make_app(cfg, True, "cuda")
+    app.swapchain_updated(width, height)
+    state = {"i": 0}
+
+    def render():
+        i = state["i"]
+        a = i * ORBIT
+        app.camera.look_at(np.array([SPAN_ORBIT_RADIUS * np.cos(a),
+                                     SPAN_EYE_HEIGHT,
+                                     SPAN_ORBIT_RADIUS * np.sin(a)]),
+                           SPAN_LOOK)
+        t = time.perf_counter()
+        out = app.render_frame(FRAME_TIME, (i + 1) * FRAME_TIME)
+        return out, time.perf_counter() - t
+
+    def finish(out):
+        app.hub.frame().track(out)
+        app.hub.next_frame_context()
+        app.post_frame()
+        state["i"] += 1
+
+    def frames(n):
+        calls = []
+        for _ in range(n):
+            out, dt = render()
+            finish(out)
+            calls.append(1e3 * dt)
+        return calls
+
+    frames(8)
+    torch.cuda.synchronize()
+    # the recorder on every other frame, so that both halves see the same
+    # drift of the host's speed
+    rec = FrameRecorder(app.hub)
+    off, on = [], []
+    for k in range(2 * SPAN_FRAMES):
+        if k % 2:
+            with rec:
+                on += frames(1)
+        else:
+            off += frames(1)
+    per = rec.frames()
+    stages = sorted({k for f in per for k in f["total_ms"]})
+    total = {k: sum(f["total_ms"].get(k, 0.0) for f in per) / len(per)
+             for k in stages}
+    self_ms = {k: sum(f["self_ms"].get(k, 0.0) for f in per) / len(per)
+               for k in stages}
+    counters = {k: sum(f["counters"].get(k, 0) for f in per) / len(per)
+                for k in ("readbacks", "uploads", "upload_bytes")}
+    off_ms = sum(off) / len(off)
+    on_cost = total["frame:render"] / off_ms - 1.0
+    log(f"spans {name}: render_frame {off_ms:.3f} ms off, "
+        f"{sum(on) / len(on):.3f} ms with the recorder, frame:render "
+        f"{total['frame:render']:.3f} ms ({100 * on_cost:+.2f}%); "
+        f"counters a frame {counters}")
+    check(abs(on_cost) <= SPAN_ON_COST_GATE,
+          f"spans {name}: frame:render {total['frame:render']:.3f} ms vs "
+          f"render_frame {off_ms:.3f} ms with no recorder")
+    check(all(k.startswith(SPAN_PREFIXES) for k in stages),
+          f"spans {name}: a span outside pass:*, frame:*, decals: {stages}")
+
+    # A traced frame's copies on the card against its counters, taken
+    # again (up to TRACE_ATTEMPTS frames) where the trace lost a copy.
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with FrameRecorder(app.hub) as rec:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out, _dt = render()
+                torch.cuda.synchronize()
+            finish(out)
+        c = rec.frames()[0]["counters"]
+        events = prof.events()
+        card = [ev.name for ev in events
+                if ev.device_type == DeviceType.CUDA]
+        copies = {"h2d": sum("Memcpy HtoD" in n for n in card),
+                  "d2h": sum("Memcpy DtoH" in n for n in card),
+                  "dtod": sum("Memcpy DtoD" in n for n in card),
+                  "memcpy_calls": sum(ev.name == "cudaMemcpyAsync"
+                                      for ev in events),
+                  "uploads": c.get("uploads", 0),
+                  "readbacks": c.get("readbacks", 0),
+                  "attempt": attempt}
+        log(f"spans {name}: a traced frame's copies {copies}")
+        if copies["h2d"] == copies["uploads"] \
+                and copies["d2h"] == copies["readbacks"]:
+            break
+    # Every copy is a cudaMemcpyAsync call on the host's timeline: the
+    # uploads, the readbacks and the card's own DtoD copies.  The card's
+    # records can lose a small copy (3 of the 2160p frame's 33 HtoD in
+    # every attempt of some runs), so its HtoD ops are held to at most
+    # the uploads, and equal where one attempt kept them all.
+    check(copies["memcpy_calls"] == copies["uploads"]
+          + copies["readbacks"] + copies["dtod"]
+          and copies["h2d"] <= copies["uploads"]
+          and copies["d2h"] == copies["readbacks"],
+          f"spans {name}: copies on the card vs counted: {copies}")
+    check(not any(n.startswith("frame:") for n in card),
+          f"spans {name}: a frame:* span on the card's timeline")
+
+    with FrameRecorder(app.hub) as rec:
+        (out, _dt), n_sync = sync_calls(render)
+        finish(out)
+    c = rec.frames()[0]["counters"]
+    sync = {"sync_calls": n_sync, "readbacks": c.get("readbacks", 0),
+            "uploads": c.get("uploads", 0)}
+    log(f"spans {name}: sync debug {sync}")
+    check(n_sync == sync["readbacks"] + sync["uploads"],
+          f"spans {name}: {n_sync} synchronizing calls, counted {sync}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frames(traced)
+        torch.cuda.synchronize()
+    events = prof.events()
+    idle = idle_by_span(events)
+    dev_ms: dict = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("pass:"):
+            dev_ms[ev.name] = dev_ms.get(ev.name, 0.0) \
+                + ev.device_time_total / 1e3 / traced
+    idle_s = sum(idle.values())
+    split_s = sum(v for k, v in idle.items() if "/" in k)
+    log(f"spans {name}: {idle_s:.4f} s idle over {traced} traced frames, "
+        f"{100 * split_s / idle_s:.1f}% under a stage; by span "
+        + json.dumps(sorted(idle.items(), key=lambda x: -x[1])[:12]))
+    del app
+    torch.cuda.empty_cache()
+    return {"render_frame_ms_off": off_ms,
+            "render_frame_ms_recorder": sum(on) / len(on),
+            "recorder_on_cost": on_cost, "host_ms_total": total,
+            "host_ms_self": self_ms, "counters_a_frame": counters,
+            "sync_debug": sync, "traced_frame_copies": copies,
+            "idle_s_by_span": idle, "traced_frames": traced,
+            "device_ms_by_range": dev_ms}
+
+
+def spans_phase() -> dict:
+    """The spans phase: each cell, then the off cost of a span."""
+    out = {name: spans_cell(name) for name in SPAN_CELLS}
+    out["span_off_us"] = span_off_us()
+    log(f"spans: an empty span costs {out['span_off_us']:.3f} us off")
+    check(out["span_off_us"] <= SPAN_OFF_US_GATE,
+          f"an empty span costs {out['span_off_us']:.3f} us off")
+    return out
+
+
 def cross_device() -> None:
     import numpy as np
     import torch
@@ -3541,6 +3784,10 @@ def main() -> int:
         __file__)), "tests"))
     t_start = time.monotonic()
     card, attrs = probe()
+    if sys.argv[1:] == ["--spans"]:
+        print(json.dumps({"spans": spans_phase()}))
+        print(card)
+        return 0
     t = time.monotonic()
     probe_result, probe_launches = compile_probe_path()
     log(f"compile probe took {time.monotonic() - t:.1f} s")
@@ -3577,6 +3824,9 @@ def main() -> int:
         parallel_phase(results)
     log(f"phase parallel took {time.monotonic() - t:.1f} s")
     t = time.monotonic()
+    spans = spans_phase()
+    log(f"phase spans took {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
     cross_device()
     streaming_cross_device()
     triangle = triangle_demo()
@@ -3605,6 +3855,7 @@ def main() -> int:
         "launch_floor_ms": floor_ms,
         "compile_probe": probe_result, "triangle_demo": triangle,
         "tools": tools, "host_subsystems": host, "parallel": parallel,
+        "spans": spans,
         "kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -141,6 +141,7 @@ from ..ui.flat_renderer import composite_overlay
 from ..ui.widgets import Label, UIManager, Window
 from ..utils.image_io import save_png
 from ..utils.logging import LOGI, LOGW
+from ..utils.timeline_trace import ROOT, span, upload
 from .application import Application
 from .headless import headless_main
 
@@ -633,8 +634,8 @@ class SceneViewerApplication(Application):
         return cam
 
     def _t(self, a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
+        return upload(np.asarray(a), dtype=dtype,
+                      device=self.device)
 
     # -- graph ------------------------------------------------------------------
     def swapchain_updated(self, width: int, height: int) -> None:
@@ -1013,12 +1014,13 @@ class SceneViewerApplication(Application):
                 for f in fns:
                     pos, nrm = f(pos, nrm)
                 return pos, nrm
-        return transform_vertices(self.packed, ctx.input("world"),
-                                  ctx.input("normal_mats"),
-                                  p["view_proj"],
-                                  skin_palette=p.get("skin_palette"),
-                                  morph_weights=p.get("morph_weights"),
-                                  displace_fn=displace_fn)
+        with span("raster.transform"):
+            return transform_vertices(self.packed, ctx.input("world"),
+                                      ctx.input("normal_mats"),
+                                      p["view_proj"],
+                                      skin_palette=p.get("skin_palette"),
+                                      morph_weights=p.get("morph_weights"),
+                                      displace_fn=displace_fn)
 
     def _resolved_max_visible(self):
         mv = self.config.raster_max_visible
@@ -1167,11 +1169,11 @@ class SceneViewerApplication(Application):
     def _apply_decals(self, ctx, surf):
         """Mix volumetric decals into the resolved base color before
         lighting (apply_volumetric_decals, volumetric_decal.h:22), inside
-        a `decals` range so torch.profiler times the blend on its own."""
+        a `decals` span so torch.profiler times the blend on its own."""
         if not self._has_decals:
             return surf
         p = ctx.params
-        with torch.profiler.record_function("decals"):
+        with span("decals"):
             base, alpha = apply_decals(
                 surf["base_color"], surf["alpha"], surf["pos"], p["decals"],
                 p["decal_strips"], layers=self.DECAL_LAYERS)
@@ -1629,11 +1631,12 @@ class SceneViewerApplication(Application):
                "camera_pos": self._t(ctx.camera_pos)}
         if lights is not None:
             zn, zf = self._cluster_range
-            out["z_masks"] = bin_lights_z(lights, out["view"],
-                                          self.CLUSTER_Z_SLICES, zn, zf)
-            out["tile_masks"] = bin_lights_tiles(
-                lights, out["view_proj"], self._rw, self._rh,
-                self.CLUSTER_TILE)
+            with span("lights"):
+                out["z_masks"] = bin_lights_z(lights, out["view"],
+                                              self.CLUSTER_Z_SLICES, zn, zf)
+                out["tile_masks"] = bin_lights_tiles(
+                    lights, out["view_proj"], self._rw, self._rh,
+                    self.CLUSTER_TILE)
         return out
 
     def _frame_sig(self, frame_time: float):
@@ -1669,34 +1672,44 @@ class SceneViewerApplication(Application):
         view-proj (culling keeps the un-jittered frustum).  elapsed_time
         drives the ocean (the animation system poses the scene before this
         is called)."""
+        with span("params"):
+            return self._frame_params(frame_time, elapsed_time)
+
+    def _frame_params(self, frame_time: float, elapsed_time: float) -> dict:
         scene = self.scene
-        scene.update_transform_tree()
-        self.context.set_camera(self.camera)
-        taa_reproj = None
-        if self._jitter is not None:
-            jittered = self._jitter.step(self.context.view_projection)
-            taa_reproj = self._jitter.reproject_matrix()
-            self.context.view_projection = jittered
-        vis = scene.gather_visible_opaque_renderables(self.context.frustum)
-        object_mask = np.zeros(self.packed.num_objects, bool)
-        object_mask[vis] = True
-        transparent_mask = np.zeros(self.packed.num_objects, bool)
-        if self._has_transparent:
-            transparent_mask[scene.gather_visible_transparent_renderables(
-                self.context.frustum)] = True
-            object_mask &= ~transparent_mask
-        if self.config.raster_max_visible == "auto":
-            self._update_auto_max_visible([object_mask])
-        light_vp, static_mask, dynamic_mask = self.sun_shadow_view()
-        n = scene.num_nodes
-        world = scene.world[:n]
-        nm = np.linalg.inv(world[:, :3, :3]).transpose(0, 2, 1).astype(
-            np.float32)
-        world_t = self._t(world)
-        skin_palette = self._skin_palette()
-        morph_weights = self._morph_weights()
+        with span("cull"):
+            scene.update_transform_tree()
+            self.context.set_camera(self.camera)
+            taa_reproj = None
+            if self._jitter is not None:
+                jittered = self._jitter.step(self.context.view_projection)
+                taa_reproj = self._jitter.reproject_matrix()
+                self.context.view_projection = jittered
+            vis = scene.gather_visible_opaque_renderables(
+                self.context.frustum)
+            object_mask = np.zeros(self.packed.num_objects, bool)
+            object_mask[vis] = True
+            transparent_mask = np.zeros(self.packed.num_objects, bool)
+            if self._has_transparent:
+                transparent_mask[
+                    scene.gather_visible_transparent_renderables(
+                        self.context.frustum)] = True
+                object_mask &= ~transparent_mask
+            if self.config.raster_max_visible == "auto":
+                self._update_auto_max_visible([object_mask])
+        with span("sun_view"):
+            light_vp, static_mask, dynamic_mask = self.sun_shadow_view()
+        with span("node_mats"):
+            n = scene.num_nodes
+            world = scene.world[:n]
+            nm = np.linalg.inv(world[:, :3, :3]).transpose(0, 2, 1).astype(
+                np.float32)
+            world_t = self._t(world)
+            nm_t = self._t(nm)
+            skin_palette = self._skin_palette()
+            morph_weights = self._morph_weights()
         params = {
-            "external": {"world": world_t, "normal_mats": self._t(nm)},
+            "external": {"world": world_t, "normal_mats": nm_t},
             "skin_palette": skin_palette,
             "morph_weights": morph_weights,
             "sun_dir": self._t(self._sun_dir),
@@ -1724,22 +1737,23 @@ class SceneViewerApplication(Application):
             # the caster set or their transforms change, as in the
             # reference viewer; the dynamic casters join it per frame in
             # the shadow pass.
-            static_nodes = np.unique(self.packed.obj_node[static_mask])
-            size = int(self.config.shadow_map_resolution)
-            key = (light_vp.tobytes(), static_mask.tobytes(),
-                   world[static_nodes].tobytes(), size)
-            if self._static_shadow_cache is None or \
-                    self._static_shadow_cache[0] != key:
-                depth, stats = render_shadow_map(
-                    self.packed, world_t, light_vp, size,
-                    self._t(static_mask, torch.bool), with_stats=True)
-                self.raster_stats["shadow"] = stats
-                # VSM without dynamic casters: blur the moments once with
-                # the depth, under the same key.
-                moments = vsm_moments(depth) \
-                    if self.config.directional_light_shadows_vsm \
-                    and not self._has_dynamic_casters else None
-                self._static_shadow_cache = (key, depth, moments)
+            with span("sun_view"):
+                static_nodes = np.unique(self.packed.obj_node[static_mask])
+                size = int(self.config.shadow_map_resolution)
+                key = (light_vp.tobytes(), static_mask.tobytes(),
+                       world[static_nodes].tobytes(), size)
+                if self._static_shadow_cache is None or \
+                        self._static_shadow_cache[0] != key:
+                    depth, stats = render_shadow_map(
+                        self.packed, world_t, light_vp, size,
+                        self._t(static_mask, torch.bool), with_stats=True)
+                    self.raster_stats["shadow"] = stats
+                    # VSM without dynamic casters: blur the moments once
+                    # with the depth, under the same key.
+                    moments = vsm_moments(depth) \
+                        if self.config.directional_light_shadows_vsm \
+                        and not self._has_dynamic_casters else None
+                    self._static_shadow_cache = (key, depth, moments)
             params["static_shadow_depth"] = self._static_shadow_cache[1]
             if self._static_shadow_cache[2] is not None:
                 params["static_vsm_moments"] = self._static_shadow_cache[2]
@@ -1764,7 +1778,8 @@ class SceneViewerApplication(Application):
                                            capacity=self.DECAL_CAPACITY,
                                            device=self.device)
             params["decal_strips"] = self._decal_strips
-        lights = self._collect_lights() if self._has_lights else None
+        with span("lights"):
+            lights = self._collect_lights() if self._has_lights else None
         if lights is not None:
             params["lights"] = lights
         params.update(self._view_params(self.context, lights))
@@ -1799,20 +1814,25 @@ class SceneViewerApplication(Application):
         where every frame steps the jitter, while animations play or an
         ocean exists, whose pose and phase follow elapsed_time, and with
         the UI, whose label follows the frame time."""
-        self.animation_system.animate(elapsed_time)
-        cached = self._param_cache
-        if cached is not None and self._jitter is None \
-                and self.ocean is None and not self.config.show_ui \
-                and not self.animation_system.states \
-                and cached[0] == self._frame_sig(frame_time):
-            params = cached[1]
-        else:
-            params = self.build_frame_params(frame_time, elapsed_time)
-        if self._debug_graph:
-            out, self._history, self.last_breadcrumbs = execute_debug(
-                self.graph, params, self._history, device=self.hub)
-            return out
-        out, self._history = self.graph.execute(params, self._history)
+        with span(ROOT):
+            with span("animate"):
+                self.animation_system.animate(elapsed_time)
+            cached = self._param_cache
+            if cached is not None and self._jitter is None \
+                    and self.ocean is None and not self.config.show_ui \
+                    and not self.animation_system.states \
+                    and cached[0] == self._frame_sig(frame_time):
+                params = cached[1]
+            else:
+                params = self.build_frame_params(frame_time, elapsed_time)
+            with span("graph"):
+                if self._debug_graph:
+                    out, self._history, self.last_breadcrumbs = \
+                        execute_debug(self.graph, params, self._history,
+                                      device=self.hub)
+                else:
+                    out, self._history = self.graph.execute(params,
+                                                            self._history)
         return out
 
     def render_frames_chained(self, frame_time: float, t0: float, n: int,

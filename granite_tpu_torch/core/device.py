@@ -28,6 +28,7 @@ import torch
 
 from ..utils.environment import get_environment_int
 from ..utils.logging import LOGI
+from ..utils.timeline_trace import span
 from .stats import TimestampIntervalStats
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -169,11 +170,13 @@ class Device:
         return self._frames[self._frame_index]
 
     def next_frame_context(self) -> FrameContext:
-        """Move the ring on and wait for the frame len(ring) back."""
-        self._frame_index = (self._frame_index + 1) % len(self._frames)
-        self.frame_counter += 1
-        f = self._frames[self._frame_index]
-        f.begin()
+        """Move the ring on and wait for the frame len(ring) back (the
+        span `frame:ring_wait`, in the frame that was just tracked)."""
+        with span("ring_wait"):
+            self._frame_index = (self._frame_index + 1) % len(self._frames)
+            self.frame_counter += 1
+            f = self._frames[self._frame_index]
+            f.begin()
         return f
 
     def wait_idle(self) -> None:

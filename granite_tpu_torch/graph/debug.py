@@ -12,8 +12,7 @@ Reference analogues:
   * per-pass timing: the QueryPool timestamp path (query_pool.hpp:133):
     each pass's milliseconds, host clock around the pass and its
     synchronize, go to `device.register_time_interval` (a
-    core.device.Device, the app's hub) as `pass:<name>` and to the
-    chrome trace (utils/timeline_trace.TimelineTraceFile).
+    core.device.Device, the app's hub) as `pass:<name>`.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ from dataclasses import dataclass, field
 import torch
 
 from ..utils.logging import LOGE
-from ..utils.timeline_trace import TimelineTraceFile
 from .render_graph import RenderGraphError
 
 
@@ -65,8 +63,6 @@ def execute_debug(graph, params, history, check_numerics: bool = True,
         raise RenderGraphError("graph not baked")
     crumbs = Breadcrumbs()
     pool: dict = {}
-    trace = TimelineTraceFile.get_instance()
-    t_base = time.monotonic_ns()
     for pname in graph._order:
         t0 = time.monotonic_ns()
         try:
@@ -79,9 +75,6 @@ def execute_debug(graph, params, history, check_numerics: bool = True,
             raise
         dt_ms = (time.monotonic_ns() - t0) / 1e6
         crumbs.pass_times_ms[pname] = dt_ms
-        if trace is not None:
-            trace.complete_event(f"pass:{pname}",
-                                 (t0 - t_base) / 1e3, dt_ms * 1e3, tid=1)
         if device is not None:
             device.register_time_interval(f"pass:{pname}", dt_ms / 1e3)
         if check_numerics:

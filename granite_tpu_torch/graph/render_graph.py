@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..utils.logging import LOGI
+from ..utils.timeline_trace import span
 
 
 class RenderGraphError(RuntimeError):
@@ -316,9 +317,9 @@ class RenderGraph:
         """Run pass `pname`, cast its outputs to their targets' types and
         add them to `pool`; -> those outputs.  bands: see PassContext."""
         rp = self._passes[pname]
-        # A named range per pass: torch.profiler attributes host and
-        # device time to it (a no-op when no profiler is active).
-        with torch.profiler.record_function(f"pass:{pname}"):
+        # A named span per pass: torch.profiler attributes host and
+        # device time to it (nothing is opened when tracing is off).
+        with span(f"pass:{pname}"):
             outs = rp._execute(PassContext(self, rp, pool, history, params,
                                            bands))
         if set(outs) != set(rp.outputs):

@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timeline_trace import upload
+
 MIN_POINT_DIST = 0.1
 
 
@@ -57,7 +59,7 @@ def pack_lights(positions, colors, radii, directions=None,
             ssb[:n, 1] = -co * scale
 
     def t(a):
-        return torch.as_tensor(a, device=device)
+        return upload(a, device=device)
 
     return LightBuffer(t(pos), t(col), t(inv_r), t(dirs), t(ssb), t(spot), n)
 
@@ -106,7 +108,7 @@ def bin_lights_tiles(lights: LightBuffer, view_proj, width: int,
     tx = -(-width // tile)
     ty = -(-height // tile)
     r = 1.0 / lights.inv_radius.clamp_min(1e-12)
-    corners = torch.as_tensor(np.array(
+    corners = upload(np.array(
         [[(i >> k) & 1 for k in range(3)] for i in range(8)],
         np.float32) * 2 - 1, device=dev)
     pts = lights.pos[:, None, :] + corners[None] * r[:, None, None]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timeline_trace import upload
 from .texture import quad_pack2d
 
 LUM_MIN_LOG = -3.0
@@ -163,8 +164,7 @@ def average_log_luminance(threshold_out, old_log_lum, frame_time,
     passes the band's sum and count through an all_reduce,
     graph.render_graph.PassContext.mean)."""
     avg = mean(threshold_out[..., 3]).clamp(LUM_MIN_LOG, LUM_MAX_LOG)
-    lerp = 1.0 - torch.pow(torch.tensor(0.5, device=avg.device),
-                           frame_time)
+    lerp = 1.0 - torch.pow(upload(0.5, device=avg.device), frame_time)
     return old_log_lum + (avg - old_log_lum) * lerp
 
 
@@ -202,7 +202,7 @@ def bloom_downsample(img, out_h: int, out_w: int, history=None,
     else:
         out = _taps(img, out_h, out_w, _DOWN_TAPS)
     if history is not None:
-        lerp = 1.0 - torch.pow(torch.tensor(0.001, device=img.device),
+        lerp = 1.0 - torch.pow(upload(0.001, device=img.device),
                                frame_time)
         out = history + (out - history) * lerp
     return out

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..math.muglm import look_at_matrix, perspective
+from ..utils.timeline_trace import upload
 from .hdr import clamped_floor
 from .shadow import _vsm_term, vsm_moments
 from .texture import quad_pack2d
@@ -110,8 +111,8 @@ def _light_sample_coords(world_pos, vps_np, slice0: int, kind: int,
     if kind == 1:
         # Closed-form cube-face projection: each face view is an axis
         # permutation/sign of d = p - light_pos sharing one projection.
-        d = world_pos - torch.tensor(np.asarray(light_pos_np, np.float32),
-                                     device=dev)
+        d = world_pos - upload(np.array(light_pos_np, np.float32),
+                               device=dev)
         dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
         ax, ay, az = dx.abs(), dy.abs(), dz.abs()
         face = torch.where(
@@ -135,7 +136,7 @@ def _light_sample_coords(world_pos, vps_np, slice0: int, kind: int,
         z = -m22 + m23 * inv_w
         slice_id = slice0 + face
     else:
-        m = torch.tensor(np.asarray(vps_np[slice0]), device=dev)
+        m = upload(np.array(vps_np[slice0]), device=dev)
         xyzw = world_pos @ m[:, :3].T + m[:, 3]
         w = xyzw[..., 3].clamp_min(1e-9)
         u = 0.5 * xyzw[..., 0] / w + 0.5

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from ..kernels import build as K
+from ..utils.timeline_trace import readback
 from .raster import TriangleSetup
 
 TILE_H = 32
@@ -147,12 +148,16 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
         stats["visible_overflow"] = small_f.sum() - sel.sum()
         stats["exact_entries"] = (single_f & sel).sum()
         stats["window_entries"] = (sel & ~single_f).sum()
-        dst = vpos[sel].long()
+        # Each boolean-mask index below reads its count back to the host.
+        with readback("bin.visible_dst", sel):
+            dst = vpos[sel].long()
         keys = torch.full((C + CHUNK,), invalid_key, dtype=torch.int32,
                           device=dev)
-        keys[dst] = key_f[sel]
+        with readback("bin.visible_keys", sel):
+            keys[dst] = key_f[sel]
         src = torch.zeros((C + CHUNK,), dtype=torch.int32, device=dev)
-        src[dst] = arange_t[sel]
+        with readback("bin.visible_src", sel):
+            src[dst] = arange_t[sel]
     else:
         stats["visible_overflow"] = torch.zeros((), dtype=torch.int64,
                                                 device=dev)
@@ -177,14 +182,18 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     hidx = torch.cumsum(huge.to(torch.int32), 0) - 1
     hsel = huge & (hidx < huge_cap)
     alloc = -(-max(huge_cap, 1) // CHUNK) * CHUNK
-    hdst = hidx[hsel].long()
+    with readback("bin.huge_dst", hsel):
+        hdst = hidx[hsel].long()
     hsrc = torch.zeros((alloc,), dtype=torch.int64, device=dev)
-    hsrc[hdst] = arange_t[hsel].long()
+    with readback("bin.huge_src", hsel):
+        hsrc[hdst] = arange_t[hsel].long()
     trects = torch.stack([tx0_f, ty0_f, tx1_f, ty1_f], dim=1)
     hbb = torch.full((alloc, 4), -1, dtype=trects.dtype, device=dev)
-    hbb[hdst] = trects[hsel]
+    with readback("bin.huge_rects", hsel):
+        hbb[hdst] = trects[hsel]
     hzq = torch.full((alloc,), ZQ_MAX, dtype=torch.int32, device=dev)
-    hzq[hdst] = zq_f[hsel]
+    with readback("bin.huge_zq", hsel):
+        hzq[hdst] = zq_f[hsel]
     n_huge = huge.sum()
     huge_count = torch.clamp_max(n_huge, huge_cap)
     stats["huge_overflow"] = torch.clamp_min(n_huge - huge_cap, 0)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build as K
+from ..utils.timeline_trace import span
 from .raster import TriangleSetup, pixel_centers
 from .raster_binned import (
     SPAN_H, SPAN_W, TILE_H, TILE_W, bin_triangles, clamped_entries,
@@ -167,17 +168,19 @@ def rasterize_resolve(setup: TriangleSetup, extra, width: int,
     tx = -(-width // TILE_W)
     ty = -(-height // TILE_H)
     T_ = setup.adj.shape[0]
-    adj9 = fold_adjugate(setup).reshape(T_, 9)
-    payload = torch.cat([adj9, extra.to(torch.float32)], dim=1)
-    packets, starts, huge_rows, huge_row_starts, stats = bin_triangles(
-        setup, width, height, huge_cap, span_w=span_w, span_h=span_h,
-        extra=payload, max_visible=max_visible)
-    planes = resolve_tiles(starts, huge_row_starts, packets, huge_rows,
-                           tx, ty, span_w, span_h, has_prev)
-    planes = planes[:, :height, :width]
-    if with_stats:
-        stats["max_bin_entries"] = (starts[1:] - starts[:-1]).max()
-        stats["clamped_entries"] = clamped_entries(
-            starts, huge_row_starts, tx, ty, span_w, span_h)
-        return planes, stats
-    return planes
+    with span("raster.bin"):
+        adj9 = fold_adjugate(setup).reshape(T_, 9)
+        payload = torch.cat([adj9, extra.to(torch.float32)], dim=1)
+        packets, starts, huge_rows, huge_row_starts, stats = bin_triangles(
+            setup, width, height, huge_cap, span_w=span_w, span_h=span_h,
+            extra=payload, max_visible=max_visible)
+    with span("raster.resolve"):
+        planes = resolve_tiles(starts, huge_row_starts, packets, huge_rows,
+                               tx, ty, span_w, span_h, has_prev)
+        planes = planes[:, :height, :width]
+        if with_stats:
+            stats["max_bin_entries"] = (starts[1:] - starts[:-1]).max()
+            stats["clamped_entries"] = clamped_entries(
+                starts, huge_row_starts, tx, ty, span_w, span_h)
+            return planes, stats
+        return planes

@@ -29,6 +29,7 @@ from ..ops.texture import (
     build_packed_lod_strip_from_levels_np, build_packed_lod_strip_np,
 )
 from ..ops.tile_sampler import sample_lod
+from ..utils.timeline_trace import upload
 
 
 def procedural_sky_equirect(height: int = 128,
@@ -115,7 +116,7 @@ def analytic_sky(dirs, sun_dir=(0.35, 0.9, 0.25),
     t = pow07(yn.clamp(0.0, 1.0))
 
     def c3(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+        return upload(np.asarray(v, np.float32), device=dev)
 
     sky = c3(horizon) * (1 - t[..., None]) + c3(zenith) * t[..., None]
     g = (-yn).clamp(0.0, 1.0)[..., None]

@@ -54,6 +54,7 @@ from ..scene.scene import (
 )
 from ..scene.scene_formats import ALPHA_MODE_BLEND, SceneInfo
 from ..utils.logging import LOGI
+from ..utils.timeline_trace import count, span, upload
 from .environment import analytic_sky, eval_sh9, sample_environment
 from .raster_dispatch import bin_window, rasterize_binned_exact
 from .volumetric_diffuse import sample_volumetric_diffuse
@@ -479,55 +480,57 @@ def material_shade_tail(scene, pos, nrm, tan, uv, duvdx, duvdy,
                          emissive_factor, covered, lod_bias, prev_pos=None,
                          textures: bool = True):
     """Texture fetch (kernel B3) + normal mapping -> surf dict."""
-    if not textures:
-        emissive = (emissive_factor if scene.has_emissive
-                    else torch.zeros_like(base_factor[..., :3]))
-        out = {"pos": pos, "normal": _normalize(nrm),
-               "base_color": base_factor[..., :3],
-               "metallic": mr_factor[..., 0],
-               "roughness": mr_factor[..., 1],
+    with span("surface.material"):
+        if not textures:
+            emissive = (emissive_factor if scene.has_emissive
+                        else torch.zeros_like(base_factor[..., :3]))
+            out = {"pos": pos, "normal": _normalize(nrm),
+                   "base_color": base_factor[..., :3],
+                   "metallic": mr_factor[..., 0],
+                   "roughness": mr_factor[..., 1],
+                   "emissive": emissive, "covered": covered,
+                   "alpha": base_factor[..., 3]}
+            if prev_pos is not None:
+                out["prev_pos"] = prev_pos
+            return out
+        lod = material_lod(scene, duvdx, duvdy, lod_bias)
+        bnd = torch.where(covered, bundle_id, torch.full_like(bundle_id, -1))
+        tex = sample_lod(scene.bundles, bnd, uv[..., 0], uv[..., 1], lod,
+                         MATERIAL_CHANNELS)
+        base_tex = tex[..., 0:4]
+        base_color = base_factor[..., :3] * base_tex[..., :3]
+        if scene.has_mr_textures:
+            metallic = mr_factor[..., 0] * tex[..., 5]
+            roughness = mr_factor[..., 1] * tex[..., 4]
+        else:
+            metallic = mr_factor[..., 0]
+            roughness = mr_factor[..., 1]
+        n = _normalize(nrm)
+        if scene.has_normal_maps:
+            t3 = _normalize(tan[..., :3])
+            b = torch.cross(n, t3, dim=-1) * tan[..., 3:4]
+            tn = tex[..., 6:9] * 2.0 - 1.0
+            n = _normalize(tn[..., 0:1] * t3 + tn[..., 1:2] * b
+                           + tn[..., 2:3] * n)
+        if scene.has_emissive:
+            emissive = emissive_factor * tex[..., 9:12]
+        else:
+            emissive = torch.zeros_like(base_color)
+        out = {"pos": pos, "normal": n, "base_color": base_color,
+               "metallic": metallic, "roughness": roughness,
                "emissive": emissive, "covered": covered,
-               "alpha": base_factor[..., 3]}
+               "alpha": base_factor[..., 3] * base_tex[..., 3]}
         if prev_pos is not None:
             out["prev_pos"] = prev_pos
         return out
-    lod = material_lod(scene, duvdx, duvdy, lod_bias)
-    bnd = torch.where(covered, bundle_id, torch.full_like(bundle_id, -1))
-    tex = sample_lod(scene.bundles, bnd, uv[..., 0], uv[..., 1], lod,
-                     MATERIAL_CHANNELS)
-    base_tex = tex[..., 0:4]
-    base_color = base_factor[..., :3] * base_tex[..., :3]
-    if scene.has_mr_textures:
-        metallic = mr_factor[..., 0] * tex[..., 5]
-        roughness = mr_factor[..., 1] * tex[..., 4]
-    else:
-        metallic = mr_factor[..., 0]
-        roughness = mr_factor[..., 1]
-    n = _normalize(nrm)
-    if scene.has_normal_maps:
-        t3 = _normalize(tan[..., :3])
-        b = torch.cross(n, t3, dim=-1) * tan[..., 3:4]
-        tn = tex[..., 6:9] * 2.0 - 1.0
-        n = _normalize(tn[..., 0:1] * t3 + tn[..., 1:2] * b
-                       + tn[..., 2:3] * n)
-    if scene.has_emissive:
-        emissive = emissive_factor * tex[..., 9:12]
-    else:
-        emissive = torch.zeros_like(base_color)
-    out = {"pos": pos, "normal": n, "base_color": base_color,
-           "metallic": metallic, "roughness": roughness,
-           "emissive": emissive, "covered": covered,
-           "alpha": base_factor[..., 3] * base_tex[..., 3]}
-    if prev_pos is not None:
-        out["prev_pos"] = prev_pos
-    return out
 
 
 def _resolve_surface(scene, setup, world_pos, world_normal, world_tangent,
                      width, height, lod_bias, prev_world_pos, max_visible,
                      material_textures):
-    extra = build_resolve_extra(scene, world_pos, world_normal,
-                                world_tangent, prev_world_pos)
+    with span("raster.setup"):
+        extra = build_resolve_extra(scene, world_pos, world_normal,
+                                    world_tangent, prev_world_pos)
     span_w, span_h = bin_window(width, height)
     planes, stats = rasterize_resolve(
         setup, extra, width, height, span_w=span_w, span_h=span_h,
@@ -560,9 +563,10 @@ def fused_raster_surface(scene: PackedScene, clip, object_mask,
                          material_textures: bool = True):
     """Raster + resolve (B2) + material fetch (B3) -> (surf, depth,
     raster stats)."""
-    setup = R.setup_triangles(clip, scene.indices, width, height)
-    setup = setup._replace(
-        valid=setup.valid & object_mask[scene.tri_object.long()])
+    with span("raster.setup"):
+        setup = R.setup_triangles(clip, scene.indices, width, height)
+        setup = setup._replace(
+            valid=setup.valid & object_mask[scene.tri_object.long()])
     return _resolve_surface(scene, setup, world_pos, world_normal,
                             world_tangent, width, height, lod_bias,
                             prev_world_pos, max_visible, material_textures)
@@ -808,7 +812,8 @@ def compute_env_products(surf, params, env, width: int, height: int,
 def shade_surface_fused(surf: dict, params, **kw):
     """The deferred lighting pass through kernel B4 -> (H, W, 3)."""
     args, kernel_kw = shade_inputs(surf, params, **kw)
-    return shade_planes_fused(*args, **kernel_kw).movedim(0, -1)
+    with span("light.shade"):
+        return shade_planes_fused(*args, **kernel_kw).movedim(0, -1)
 
 
 def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
@@ -829,17 +834,17 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
     z_slices = z_masks.shape[0] if z_masks is not None else 32
     H, W = surf["metallic"].shape
     pos = surf["pos"]
-    shadow_term = compute_shadow_term(pos, surf["covered"], shadow_map,
-                                      shadow_uv_mat, pcf_wide, shadow_tiled,
-                                      shadow_half_res)
-    shadow_term = torch.broadcast_to(
-        torch.as_tensor(shadow_term, dtype=torch.float32, device=dev),
-        (H, W))
+    with span("light.sun_shadow"):
+        shadow_term = compute_shadow_term(pos, surf["covered"], shadow_map,
+                                          shadow_uv_mat, pcf_wide,
+                                          shadow_tiled, shadow_half_res)
+        shadow_term = torch.broadcast_to(
+            upload(shadow_term, dtype=torch.float32, device=dev), (H, W))
     has_env = env is not None
     if has_env:
-        irr, spec_env, bg = compute_env_products(surf, params, env, width,
-                                                 height, background,
-                                                 vol_diffuse)
+        with span("light.env"):
+            irr, spec_env, bg = compute_env_products(
+                surf, params, env, width, height, background, vol_diffuse)
     else:
         irr = spec_env = torch.zeros((H, W, 3), device=dev)
         bg = torch.broadcast_to(
@@ -850,77 +855,83 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
     has_lights = lights is not None
     slot_planes = []
     if has_lights and cluster_shadows is not None:
-        cs = cluster_shadows
-        half = bool(cs.get("half_res", False))
-        tpos = pos[::2, ::2] if half else pos
-        log_ratio = math.log(z_far / z_near)
-        vz = -(tpos @ view[2, :3] + view[2, 3])
-        s = (torch.log(vz.clamp_min(z_near) / z_near) / log_ratio
-             * z_slices).clamp(0, z_slices - 1).to(torch.int64)
-        tiled = tile_masks.repeat_interleave(CLUSTER_TILE, 0) \
-            .repeat_interleave(CLUSTER_TILE, 1)[:H, :W]
-        if half:
-            tiled = tiled[::2, ::2]
-        pixel_masks = z_masks[s] & tiled
-        slots, terms = topk_shadow_terms(
-            cs["atlas_flat"], cs["vps_np"], cs["size"],
-            int(cs["num_lights"]), cs["light_slice_np"],
-            cs["light_kind_np"], cs["light_pos_np"], pixel_masks, tpos,
-            k=cs.get("k", 4), bias=cs.get("bias", 2e-3))
-        if half:
-            slots = slots.repeat_interleave(2, 1).repeat_interleave(
-                2, 2)[:, :H, :W]
-            terms = terms.repeat_interleave(2, 1).repeat_interleave(
-                2, 2)[:, :H, :W]
-        k_shadow = slots.shape[0]
-        slot_planes = [slots[j].to(torch.float32) for j in range(k_shadow)] \
-            + [terms[j] for j in range(k_shadow)]
+        with span("light.point_shadows"):
+            cs = cluster_shadows
+            half = bool(cs.get("half_res", False))
+            tpos = pos[::2, ::2] if half else pos
+            log_ratio = math.log(z_far / z_near)
+            vz = -(tpos @ view[2, :3] + view[2, 3])
+            s = (torch.log(vz.clamp_min(z_near) / z_near) / log_ratio
+                 * z_slices).clamp(0, z_slices - 1).to(torch.int64)
+            tiled = tile_masks.repeat_interleave(CLUSTER_TILE, 0) \
+                .repeat_interleave(CLUSTER_TILE, 1)[:H, :W]
+            if half:
+                tiled = tiled[::2, ::2]
+            pixel_masks = z_masks[s] & tiled
+            slots, terms = topk_shadow_terms(
+                cs["atlas_flat"], cs["vps_np"], cs["size"],
+                int(cs["num_lights"]), cs["light_slice_np"],
+                cs["light_kind_np"], cs["light_pos_np"], pixel_masks, tpos,
+                k=cs.get("k", 4), bias=cs.get("bias", 2e-3))
+            if half:
+                slots = slots.repeat_interleave(2, 1).repeat_interleave(
+                    2, 2)[:, :H, :W]
+                terms = terms.repeat_interleave(2, 1).repeat_interleave(
+                    2, 2)[:, :H, :W]
+            k_shadow = slots.shape[0]
+            slot_planes = [slots[j].to(torch.float32)
+                           for j in range(k_shadow)] \
+                + [terms[j] for j in range(k_shadow)]
     k_shadow = len(slot_planes) // 2
 
-    has_ao = ao is not None
-    zero = torch.zeros((H, W), device=dev)
-    planes = [
-        surf["base_color"][..., 0], surf["base_color"][..., 1],
-        surf["base_color"][..., 2],
-        surf["normal"][..., 0], surf["normal"][..., 1],
-        surf["normal"][..., 2],
-        surf["metallic"], surf["roughness"],
-        pos[..., 0], pos[..., 1], pos[..., 2],
-        surf["emissive"][..., 0], surf["emissive"][..., 1],
-        surf["emissive"][..., 2],
-        surf["covered"].to(torch.float32),
-        shadow_term,
-        spec_env[..., 0], spec_env[..., 1], spec_env[..., 2],
-        bg[..., 0], bg[..., 1], bg[..., 2],
-        ao if has_ao else zero,
-        irr[..., 0], irr[..., 1], irr[..., 2],
-    ] + slot_planes
-    assert len(planes) == P_FIXED + 2 * k_shadow
-    ph = -(-H // 32) * 32
-    pw = -(-W // 128) * 128
-    stacked = torch.zeros((len(planes), ph, pw), dtype=torch.float32,
-                          device=dev)
-    stacked[:, :H, :W] = torch.stack([p.to(torch.float32) for p in planes])
+    with span("light.shade"):
+        has_ao = ao is not None
+        zero = torch.zeros((H, W), device=dev)
+        planes = [
+            surf["base_color"][..., 0], surf["base_color"][..., 1],
+            surf["base_color"][..., 2],
+            surf["normal"][..., 0], surf["normal"][..., 1],
+            surf["normal"][..., 2],
+            surf["metallic"], surf["roughness"],
+            pos[..., 0], pos[..., 1], pos[..., 2],
+            surf["emissive"][..., 0], surf["emissive"][..., 1],
+            surf["emissive"][..., 2],
+            surf["covered"].to(torch.float32),
+            shadow_term,
+            spec_env[..., 0], spec_env[..., 1], spec_env[..., 2],
+            bg[..., 0], bg[..., 1], bg[..., 2],
+            ao if has_ao else zero,
+            irr[..., 0], irr[..., 1], irr[..., 2],
+        ] + slot_planes
+        assert len(planes) == P_FIXED + 2 * k_shadow
+        ph = -(-H // 32) * 32
+        pw = -(-W // 128) * 128
+        stacked = torch.zeros((len(planes), ph, pw), dtype=torch.float32,
+                              device=dev)
+        stacked[:, :H, :W] = torch.stack([p.to(torch.float32) for p in planes])
 
-    uni = torch.zeros((8, 128), dtype=torch.float32, device=dev)
-    uni[0, 0:3] = params["camera_pos"]
-    uni[0, 3:6] = params["sun_dir"]
-    uni[1, 0:3] = params["sun_color"]
-    tmh = -(-ph // CLUSTER_TILE)
-    tmw = pw // CLUSTER_TILE
-    tm = torch.zeros((tmh, tmw), dtype=torch.int32, device=dev)
-    if has_lights:
-        uni[0, 6] = float(lights.count)
-        uni[0, 9:13] = view[2]
-        ltbl = fused_light_table(lights, view, z_near, z_far, z_slices)
-        src = tile_masks[..., 0]
-        h_, w_ = min(tmh, src.shape[0]), min(tmw, src.shape[1])
-        tm[:h_, :w_] = src[:h_, :w_]
-    else:
-        ltbl = torch.zeros((1, 128), dtype=torch.float32, device=dev)
-    return (stacked, ltbl, tm, uni, H, W), dict(
-        k_shadow=k_shadow, has_env=has_env, has_lights=has_lights,
-        has_ao=has_ao, ambient=not has_env)
+        uni = torch.zeros((8, 128), dtype=torch.float32, device=dev)
+        uni[0, 0:3] = params["camera_pos"]
+        uni[0, 3:6] = params["sun_dir"]
+        uni[1, 0:3] = params["sun_color"]
+        tmh = -(-ph // CLUSTER_TILE)
+        tmw = pw // CLUSTER_TILE
+        tm = torch.zeros((tmh, tmw), dtype=torch.int32, device=dev)
+        if has_lights:
+            uni[0, 6] = float(lights.count)
+            if dev.type == "cuda":   # a host scalar copied to the card
+                count("uploads")
+                count("upload_bytes", 4)
+            uni[0, 9:13] = view[2]
+            ltbl = fused_light_table(lights, view, z_near, z_far, z_slices)
+            src = tile_masks[..., 0]
+            h_, w_ = min(tmh, src.shape[0]), min(tmw, src.shape[1])
+            tm[:h_, :w_] = src[:h_, :w_]
+        else:
+            ltbl = torch.zeros((1, 128), dtype=torch.float32, device=dev)
+        return (stacked, ltbl, tm, uni, H, W), dict(
+            k_shadow=k_shadow, has_env=has_env, has_lights=has_lights,
+            has_ao=has_ao, ambient=not has_env)
 
 
 def transparent_composite(scene: PackedScene, clip, opaque_depth,

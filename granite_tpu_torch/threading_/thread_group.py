@@ -31,7 +31,6 @@ from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, Optional
 
 from ..utils.environment import get_environment_int
-from ..utils.timeline_trace import scoped_timeline_event
 
 
 class TaskClass(enum.Enum):
@@ -85,8 +84,7 @@ class TaskGroup:
 
     def _run_one(self, fn: Callable) -> None:
         try:
-            with scoped_timeline_event(self.name or "task"):
-                fn()
+            fn()
         finally:
             with self._lock:
                 self._pending -= 1
