@@ -369,13 +369,19 @@
    readbacks, the Memcpy HtoD ops at most the uploads, and no
    device-side event may be named frame:*; one frame with the recorder
    under torch.cuda.set_sync_debug_mode("warn"): the synchronizing calls
-   inside render_frame must equal its readbacks plus its uploads (a copy
-   from pageable host memory synchronizes too); the cell's trace_frames
+   inside render_frame must equal its readbacks plus its blocking
+   uploads (those not staged: a copy from pageable host memory
+   synchronizes too; a staged one, from the ring's pinned arena, does
+   not), and on the frame path every upload is staged; the cell's trace_frames
    under torch.profiler: each idle gap of the card put down to the
    innermost span the host was in at its middle, and each stage range's
    device ms.  Then SPAN_OFF_CALLS empty spans with tracing off: us each,
-   at most 1.  `python3 chip_smoke.py --spans` runs the probe and this
-   phase alone.
+   at most 1; and the host us an upload of UPLOAD_SIZES float32s costs
+   (UPLOAD_CALLS, the card idle, median of UPLOAD_ROUNDS interleaved
+   rounds) by each route: the blocking copy, the ring's pinned arena
+   (upload()), and a pinned block of PyTorch's caching host allocator a
+   copy.  `python3 chip_smoke.py --spans` runs
+   the probe and this phase alone.
 Each phase's wall seconds are printed when it ends.
 Any failure raises and exits non-zero without the final result line.
 The last three lines are the kernels JSON (ms, plain_ms, bound_ms of the
@@ -666,6 +672,10 @@ SPAN_FRAMES = 64
 SPAN_OFF_CALLS = 10**6
 SPAN_ON_COST_GATE = 0.1
 SPAN_OFF_US_GATE = 1.0
+UPLOAD_SIZES = (16, 1024)
+UPLOAD_CALLS = 2048
+UPLOAD_ROUNDS = 5
+UPLOAD_BATCH = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -3636,7 +3646,8 @@ def spans_cell(name: str) -> dict:
     self_ms = {k: sum(f["self_ms"].get(k, 0.0) for f in per) / len(per)
                for k in stages}
     counters = {k: sum(f["counters"].get(k, 0) for f in per) / len(per)
-                for k in ("readbacks", "uploads", "upload_bytes")}
+                for k in ("readbacks", "uploads", "uploads_staged",
+                          "upload_bytes")}
     off_ms = sum(off) / len(off)
     on_cost = total["frame:render"] / off_ms - 1.0
     log(f"spans {name}: render_frame {off_ms:.3f} ms off, "
@@ -3693,10 +3704,14 @@ def spans_cell(name: str) -> dict:
         finish(out)
     c = rec.frames()[0]["counters"]
     sync = {"sync_calls": n_sync, "readbacks": c.get("readbacks", 0),
-            "uploads": c.get("uploads", 0)}
+            "uploads": c.get("uploads", 0),
+            "uploads_staged": c.get("uploads_staged", 0)}
     log(f"spans {name}: sync debug {sync}")
-    check(n_sync == sync["readbacks"] + sync["uploads"],
+    check(n_sync == sync["readbacks"] + sync["uploads"]
+          - sync["uploads_staged"],
           f"spans {name}: {n_sync} synchronizing calls, counted {sync}")
+    check(sync["uploads_staged"] == sync["uploads"],
+          f"spans {name}: an upload of the frame path not staged: {sync}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3725,13 +3740,56 @@ def spans_cell(name: str) -> dict:
             "device_ms_by_range": dev_ms}
 
 
+def upload_us() -> dict:
+    """Host us an upload costs, the card idle, by route and size: the
+    blocking copy from pageable memory, upload() through the ring's
+    pinned arena (the ring moved between batches of UPLOAD_BATCH, off the
+    clock), and a pinned block of PyTorch's caching host allocator a copy
+    (which records an event when the block is freed).  The routes take
+    turns, in reversed order every other round of UPLOAD_ROUNDS; the
+    median round of each."""
+    import numpy as np
+    import torch
+    from granite_tpu_torch.core.device import Device
+    from granite_tpu_torch.utils.timeline_trace import upload
+    dev = torch.device("cuda", torch.cuda.current_device())
+    hub = Device(dev)
+    routes = {
+        "blocking": lambda a: torch.as_tensor(a, device=dev),
+        "arena": lambda a: upload(a, device=dev),
+        "caching_host": lambda a: torch.from_numpy(a).pin_memory().to(
+            dev, non_blocking=True)}
+    rounds: dict = {}
+    for r in range(UPLOAD_ROUNDS):
+        for name, fn in (list(routes.items())[::-1 if r % 2 else 1]):
+            for n in UPLOAD_SIZES:
+                a = np.arange(n, dtype=np.float32)
+                keep, t_ns = [], 0
+                for b in range(-1, UPLOAD_CALLS // UPLOAD_BATCH):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter_ns()
+                    for _ in range(UPLOAD_BATCH):
+                        keep.append(fn(a))
+                    if b >= 0:          # batch -1 warms the route up
+                        t_ns += time.perf_counter_ns() - t
+                    hub.next_frame_context()
+                    keep.clear()
+                rounds.setdefault(f"{name}.{4 * n}B", []).append(
+                    t_ns / 1e3 / UPLOAD_CALLS)
+    hub.wait_idle()
+    return {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+
+
 def spans_phase() -> dict:
-    """The spans phase: each cell, then the off cost of a span."""
+    """The spans phase: each cell, then the off cost of a span and the
+    host cost of an upload by route."""
     out = {name: spans_cell(name) for name in SPAN_CELLS}
     out["span_off_us"] = span_off_us()
     log(f"spans: an empty span costs {out['span_off_us']:.3f} us off")
     check(out["span_off_us"] <= SPAN_OFF_US_GATE,
           f"an empty span costs {out['span_off_us']:.3f} us off")
+    out["upload_us"] = upload_us()
+    log(f"spans: host us an upload, by route: {out['upload_us']}")
     return out
 
 

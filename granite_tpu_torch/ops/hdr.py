@@ -13,9 +13,9 @@ image gets the 4-neighbour unsharp mask (`sharpen`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..utils.timeline_trace import upload
 from .texture import quad_pack2d
 
 LUM_MIN_LOG = -3.0
@@ -158,13 +158,20 @@ def bloom_threshold(hdr, avg_linear_lum, out_h: int, out_w: int,
     return torch.cat([rgb, loglum[..., None]], dim=-1)
 
 
+def _host_lerp(base: float, frame_time: float) -> float:
+    """1 - base^frame_time in float32, on the host (a factor of the lerp
+    towards this frame's value; no tensor made, nothing copied)."""
+    return float(np.float32(1.0) - np.power(np.float32(base),
+                                            np.float32(frame_time)))
+
+
 def average_log_luminance(threshold_out, old_log_lum, frame_time,
                           mean=torch.mean):
     """mean: the reduction over the threshold target's pixels (a row band
     passes the band's sum and count through an all_reduce,
     graph.render_graph.PassContext.mean)."""
     avg = mean(threshold_out[..., 3]).clamp(LUM_MIN_LOG, LUM_MAX_LOG)
-    lerp = 1.0 - torch.pow(upload(0.5, device=avg.device), frame_time)
+    lerp = _host_lerp(0.5, frame_time)
     return old_log_lum + (avg - old_log_lum) * lerp
 
 
@@ -202,8 +209,7 @@ def bloom_downsample(img, out_h: int, out_w: int, history=None,
     else:
         out = _taps(img, out_h, out_w, _DOWN_TAPS)
     if history is not None:
-        lerp = 1.0 - torch.pow(upload(0.001, device=img.device),
-                               frame_time)
+        lerp = _host_lerp(0.001, frame_time)
         out = history + (out - history) * lerp
     return out
 

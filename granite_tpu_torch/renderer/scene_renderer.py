@@ -54,7 +54,7 @@ from ..scene.scene import (
 )
 from ..scene.scene_formats import ALPHA_MODE_BLEND, SceneInfo
 from ..utils.logging import LOGI
-from ..utils.timeline_trace import count, span, upload
+from ..utils.timeline_trace import span, upload
 from .environment import analytic_sky, eval_sh9, sample_environment
 from .raster_dispatch import bin_window, rasterize_binned_exact
 from .volumetric_diffuse import sample_volumetric_diffuse
@@ -918,10 +918,7 @@ def shade_inputs(surf: dict, params, shadow_map=None, shadow_uv_mat=None,
         tmw = pw // CLUSTER_TILE
         tm = torch.zeros((tmh, tmw), dtype=torch.int32, device=dev)
         if has_lights:
-            uni[0, 6] = float(lights.count)
-            if dev.type == "cuda":   # a host scalar copied to the card
-                count("uploads")
-                count("upload_bytes", 4)
+            uni[0, 6].fill_(float(lights.count))   # an argument, no copy
             uni[0, 9:13] = view[2]
             ltbl = fused_light_table(lights, view, z_near, z_far, z_slices)
             src = tile_masks[..., 0]

@@ -4,6 +4,7 @@
     with span("raster.bin"): ...   # pass:<p>/raster.bin inside pass <p>
     with readback("bin.huge_dst", t): idx = t[mask]
     t = upload(array, device=dev)  # counted in uploads, upload_bytes
+                                   # (and uploads_staged, see upload)
     count("name", n)
 
 Off (the default: no profiler running, no recorder on) a span is one
@@ -47,6 +48,7 @@ ROOT = "frame:render"
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _host_range = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 _recorder = None    # the FrameRecorder switched on, or None
+_arena = None       # the staging arena upload() uses (stage_through)
 # The open spans of the frame path (one thread), outermost first: their
 # full names and recorder indices (-1: not recorded).
 _names: list = []
@@ -143,13 +145,34 @@ def readback(site: str, t: torch.Tensor):
 
 def upload(a, dtype=None, device=None) -> torch.Tensor:
     """torch.as_tensor(a, dtype, device), counted in `uploads` and
-    `upload_bytes` when it copies host data to a CUDA device."""
+    `upload_bytes` when it copies host data to a CUDA device.  Host data
+    bound for the device of the frame ring's current staging arena
+    (core/device.StagingArena) goes through it when it fits: copied into
+    pinned memory and on to a fresh device tensor without blocking, and
+    counted in `uploads_staged` too; any other upload (a CPU target, no
+    ring yet, no room left in the slot) is the blocking copy."""
+    arena = _arena
+    if arena is not None and device == arena.device:
+        t = arena.stage(a, dtype)
+        if t is not None:
+            if _recorder is not None:
+                _recorder._add("uploads", 1)
+                _recorder._add("upload_bytes", t.nbytes)
+                _recorder._add("uploads_staged", 1)
+            return t
     t = torch.as_tensor(a, dtype=dtype, device=device)
     if _recorder is not None and t.device.type == "cuda" and not (
             isinstance(a, torch.Tensor) and a.device.type == "cuda"):
         _recorder._add("uploads", 1)
         _recorder._add("upload_bytes", t.nbytes)
     return t
+
+
+def stage_through(arena) -> None:
+    """Make `arena` (a core/device.StagingArena, or None) the one upload()
+    stages through: the frame ring's current slot's."""
+    global _arena
+    _arena = arena
 
 
 class FrameRecorder:
