@@ -12,12 +12,14 @@ the lead-in's, which the reference replays, so its backbuffer is judged
 too), JUDGED_DRAWN more drawn from the seed among the first
 JUDGED_WITHIN, and the window's last; their planes are kept from the
 graph's pool when they are rendered and compared after the window, once
-the viewer is gone.
+the viewer is gone.  The configuration names its reference and the maps
+judged beside the frames (the contract in gbench/__init__.py).
 """
 
 from __future__ import annotations
 
 import gc
+import importlib
 import os
 import time
 
@@ -38,6 +40,104 @@ JUDGED_DRAWN = 2
 JUDGED_WITHIN = 120
 # The raster counters of a frame that say the viewer dropped geometry.
 DROP_COUNTERS = ("visible_overflow", "huge_overflow", "clamped_entries")
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class ConfigError(ValueError):
+    """A configuration the harness cannot judge as it is written."""
+
+
+def _static_shadow(app):
+    """The cached static sun map (B1 at set-up)."""
+    cache = app._static_shadow_cache
+    return cache[1] if cache else None
+
+
+def _cluster_atlas(app):
+    """The clustered lights' depth atlas (B1 at set-up), (slices, S, S):
+    the viewer's flat atlas holds each texel's 2x2 footprint."""
+    atlas = app._cluster_shadow
+    if not atlas:
+        return None
+    size = atlas["size"]
+    return atlas["atlas_flat"][:, 0].reshape(-1, size, size)
+
+
+# The port-side sources of a judged map ("judged_maps" of a
+# configuration): "setup:<name>" reads the viewer once the window has
+# closed; "frame:<pool resource>" keeps that plane of the graph's pool
+# from each judged frame.
+SETUP_SOURCES = {"static_shadow": _static_shadow,
+                 "cluster_atlas": _cluster_atlas}
+
+
+def judged_maps(config: dict) -> tuple:
+    """-> ({limit: setup source}, {limit: pool resource}) of the
+    configuration's "judged_maps"; ConfigError for a source the harness
+    does not know or a map without a limit."""
+    maps = config.get("judged_maps")
+    if not isinstance(maps, dict):
+        raise ConfigError('the configuration has no "judged_maps"')
+    setup, frame = {}, {}
+    for limit, source in maps.items():
+        kind, _, name = str(source).partition(":")
+        if kind == "setup" and name in SETUP_SOURCES:
+            setup[limit] = name
+        elif kind == "frame" and name:
+            frame[limit] = name
+        else:
+            raise ConfigError(f"judged map {limit!r}: unknown source "
+                              f"{source!r} (setup:{'|'.join(SETUP_SOURCES)}"
+                              " or frame:<pool resource>)")
+        if limit not in config.get("limits", {}):
+            raise ConfigError(f"judged map {limit!r} has no limit")
+    return setup, frame
+
+
+def _same(a, b) -> bool:
+    return type(a) is type(b) and a == b
+
+
+def unmodelled_knobs(cls, viewer: dict) -> list:
+    """The (knob, value) pairs of the viewer's config that the reference
+    class does not model (its KNOBS)."""
+    return [(k, v) for k, v in viewer.items()
+            if k not in cls.KNOBS or (cls.KNOBS[k] is not None and not any(
+                _same(v, a) for a in cls.KNOBS[k]))]
+
+
+def reference_for(config: dict) -> type:
+    """The reference class the configuration names ("reference":
+    "<module>:<class>", a module under benchmark/), once it is shown to
+    model every viewer knob the configuration sets and every judged map
+    has a source and a limit.  Constructs nothing; ConfigError names what
+    it refuses."""
+    spec = config.get("reference")
+    mod_name, _, cls_name = str(spec).partition(":")
+    if not isinstance(spec, str) or not mod_name or not cls_name:
+        raise ConfigError(f'"reference" must be "<module>:<class>", '
+                          f"not {spec!r}")
+    try:
+        mod = importlib.import_module(mod_name)
+    except ModuleNotFoundError as e:
+        if e.name is None or (e.name != mod_name
+                              and not mod_name.startswith(e.name + ".")):
+            raise
+        raise ConfigError(f"reference {spec}: no module {mod_name}") from e
+    path = os.path.abspath(getattr(mod, "__file__", None) or "")
+    if not path.startswith(BENCH + os.sep):
+        raise ConfigError(f"reference {spec}: {path or mod_name} is not "
+                          "under benchmark/")
+    cls = getattr(mod, cls_name, None)
+    if not isinstance(cls, type):
+        raise ConfigError(f"reference {spec}: no class {cls_name}")
+    off = unmodelled_knobs(cls, config.get("viewer", {}))
+    if off:
+        raise ConfigError(f"reference {spec} does not model the viewer "
+                          "knob(s) " + ", ".join(f"{k} = {v!r}"
+                                                for k, v in off))
+    judged_maps(config)
+    return cls
 
 
 def process_age_s(fallback_t0: float) -> float:
@@ -146,6 +246,7 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
             torch.cuda.synchronize(dev)
 
     W, H = int(traffic["width"]), int(traffic["height"])
+    setup_maps, frame_maps = judged_maps(config)
     viewer_cfg = config["viewer"]
     info = build_scene(config["scene"])
     lens_ = lens(info)
@@ -165,9 +266,6 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     sync()
     if fault is not None:
         fault(app)
-    sun = app._static_shadow_cache[1] if app._static_shadow_cache else None
-    atlas = app._cluster_shadow["atlas_flat"] if app._cluster_shadow \
-        else None
     from granite_tpu_torch.kernels import build as K
     setup_s = process_age_s(t0)
 
@@ -238,11 +336,15 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
         if cuda else 0
 
     # The viewer's state is freed before the reference runs; the judged
-    # planes and the set-up maps stay.
+    # planes and maps stay.
+    res["setup_maps"] = {limit: SETUP_SOURCES[name](app)
+                         for limit, name in setup_maps.items()}
     judged_planes = {}
     for fno, keep in kept.items():
         judged_planes[fno] = {
             "pose": keep["pose"], "planes": port_planes(keep["pool"]),
+            "maps": {limit: keep["pool"].get(name)
+                     for limit, name in frame_maps.items()},
             "counters": {k: {c: int(v) for c, v in s.items()}
                          for k, s in keep["raster_stats"].items()}}
     loop.close()
@@ -251,20 +353,22 @@ def run_cell(config: dict, traffic: dict, seed: int, seconds: float,
     if cuda:
         torch.cuda.empty_cache()
     res["judged"] = judged_planes
-    res["sun"], res["atlas"] = sun, atlas
     res["info"], res["lens"] = info, lens_
     return res
 
 
 def compare(res: dict, config: dict, device: str = "cuda",
             control: bool = False, log=print, refs=None) -> dict:
-    """The reference's readings against the run's judged planes -> the
-    numbers (each the worst over the judged frames) and per-frame detail.
+    """The reference's readings against the run's judged planes and maps
+    -> the numbers (each the worst over the judged frames) and per-frame
+    detail.  The reference is the class the configuration names.
     control=True puts the reference at bfloat16 stage outputs in the
     viewer's place (its numbers are the control's readings).  refs: a
     dict that keeps the references ("ref", "ctl") for another run of the
-    same configuration and size."""
-    from plainref.frame import ReferenceFrame
+    same configuration and size.  A judged map that either side lacks
+    gives no number, so the run is not correct."""
+    cls = reference_for(config)
+    setup_maps, frame_maps = judged_maps(config)
     t = time.perf_counter()
     W, H = res["width"], res["height"]
     pos = np.asarray(res["poses"]["positions"], np.float32)
@@ -272,11 +376,11 @@ def compare(res: dict, config: dict, device: str = "cuda",
     if refs is None:
         refs = {}
     if "ref" not in refs:
-        refs["ref"] = ReferenceFrame(res["info"], config["viewer"], W, H,
-                                     res["lens"], device)
+        refs["ref"] = cls(res["info"], config["viewer"], W, H, res["lens"],
+                          device)
     if control and "ctl" not in refs:
-        refs["ctl"] = ReferenceFrame(res["info"], config["viewer"], W, H,
-                                     res["lens"], device, control=True)
+        refs["ctl"] = cls(res["info"], config["viewer"], W, H, res["lens"],
+                          device, control=True)
     ref, ctl = refs["ref"], refs.get("ctl")
     for r in (ref, ctl):
         if r is not None:
@@ -287,16 +391,17 @@ def compare(res: dict, config: dict, device: str = "cuda",
     def worst(name, value):
         nums[name] = max(nums.get(name, 0.0), value)
 
-    if ref.sun_depth is not None:
-        worst("sun_depth", J.compare_depth_map(
-            ctl.sun_depth if control else res["sun"], ref.sun_depth))
-    if ref.atlas is not None:
-        if control:
-            faces = ctl.atlas["depth"]
-        else:   # the viewer's flat atlas holds each texel's 2x2 footprint
-            S = ref.atlas["depth"].shape[-1]
-            faces = res["atlas"][:, 0].reshape(-1, S, S)
-        worst("atlas_depth", J.compare_depth_map(faces, ref.atlas["depth"]))
+    def judge_map(limit, port_map, ref_map, out):
+        if port_map is None or ref_map is None:
+            log(f"judged map {limit}: none on the "
+                f"{'viewer' if port_map is None else 'reference'}'s side")
+        else:
+            out[limit] = J.compare_depth_map(port_map, ref_map)
+
+    for limit in setup_maps:
+        judge_map(limit, getattr(ctl, limit, None) if control
+                  else res["setup_maps"][limit], getattr(ref, limit, None),
+                  nums)
     for i in res["poses"]["lead_in"]:
         ref.post(ref.surface(pos[i], rot[i])["hdr"])
         if control:
@@ -312,6 +417,9 @@ def compare(res: dict, config: dict, device: str = "cuda",
         if not ref.deferred:
             p["covered"] = p["depth"] > 0
         d = J.compare_surface(p, r)
+        for limit in frame_maps:
+            judge_map(limit, p.get(limit) if control else jf["maps"][limit],
+                      r.get(limit), d)
         if fno == 0:
             bb_ref = ref.post(r["hdr"])
             bb = ctl.post(p["hdr"]) if control else p["backbuffer"]

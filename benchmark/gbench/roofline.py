@@ -76,7 +76,8 @@ def b2_frame_bound(ref, position, rotation, max_visible) -> dict:
     """B2's bound at one pose, on the bin arrays the viewer builds there:
     the frame's frustum-culled objects, compacted to max_visible, huge
     lists at the viewer's cap (1024); gref's frozen binning and count
-    over the reference's scene arrays (ref: a plainref ReferenceFrame)."""
+    over the reference's scene arrays (ref: the configuration's
+    reference, its sa, view, width and height)."""
     import numpy as np
     import torch
     from gref.math.frustum import Frustum, frustum_cull

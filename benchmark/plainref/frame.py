@@ -52,7 +52,41 @@ def _on(v, device) -> bool:
     return s == "true" or (s == "auto" and device.type == "cuda")
 
 
+# A true/false/"auto" knob's values, as _on reads them.
+SWITCH = (True, False, "true", "false", "auto")
+
+
 class ReferenceFrame:
+    """The reference of the benchmark's configurations; its interface is
+    the harness's contract for a reference (gbench/__init__.py)."""
+
+    # The viewer knobs this reference models, each with the only values it
+    # models (None: any value).  The harness refuses a configuration that
+    # sets any other knob, or another value, before set-up.
+    KNOBS = {
+        "renderer": ("deferred", "forward"),
+        "hdrBloom": (True, False),
+        "hdrBloomDynamicExposure": (True, False),
+        "directionalLightShadows": (True, False),
+        "shadowMapResolution": None,
+        "clusteredLightsShadows": (True, False),
+        "clusteredLightsShadowsResolution": None,
+        "clusteredLightsShadowsHalfRes": SWITCH,
+        "shadowTermHalfRes": SWITCH,
+        "materialTileSampler": SWITCH,
+        # A cap on the visible set changes the frame only where it drops
+        # geometry, which the geometry number reads as pixels off.
+        "rasterMaxVisible": None,
+        # At the one value that leaves the frame as drawn here.
+        "msaa": (1,),
+        "resolutionScale": (1, 1.0),
+        "PCFKernelWide": (False,),
+        "clusteredLightsShadowsVSM": (False,),
+        "envSpecularHalfRes": (False,),
+        "hdrBloomDepth": (6,),
+        "postAA": ("none",),
+    }
+
     def __init__(self, info, viewer_cfg: dict, width: int, height: int,
                  lens: dict, device, control: bool = False):
         self.device = torch.device(device)
@@ -60,13 +94,6 @@ class ReferenceFrame:
         self.width, self.height = int(width), int(height)
         self.lens = dict(lens)
         self.control = bool(control)
-        for key, plain in (("msaa", 1), ("resolutionScale", 1.0),
-                           ("PCFKernelWide", False),
-                           ("clusteredLightsShadowsVSM", False),
-                           ("envSpecularHalfRes", False),
-                           ("hdrBloomDepth", 6), ("postAA", "none")):
-            if cfg.get(key, plain) != plain:
-                raise ReferenceFrameError(f"the reference has no {key}")
         self.deferred = cfg.get("renderer", "forward") == "deferred"
         self.bloom = bool(cfg.get("hdrBloom", True))
         self.sa = G.SceneArrays(info, self.device)
@@ -87,6 +114,11 @@ class ReferenceFrame:
             self.k_shadow = SHADOWED_LIGHTS_PER_PIXEL
         self.n_lights = len(sa.lights)
         self.history = self.initial_history()
+
+    @property
+    def atlas_depth(self):
+        """The judged map `atlas_depth`: the atlas's (slices, S, S) depth."""
+        return None if self.atlas is None else self.atlas["depth"]
 
     # -- set-up ---------------------------------------------------------------
     def _q(self, t):

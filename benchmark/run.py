@@ -12,8 +12,11 @@ JSON object (correct, attempted, failed, metrics, device[, breakdown]);
 --trace 0 reports the cell's end-to-end metrics, --trace 1 its per-layer
 ones.  Each run writes the pose list, the judged frames' numbers and
 raster counters and the kernel launches to
-bench_out/<workload>.<seed>.<trace>.json.  Exits 3 without a card, and
-non-zero with no result when jax, jaxlib, flax or granite_tpu is loaded.
+bench_out/<workload>.<seed>.<trace>.json.  Exits 2 with no result when
+the configuration's reference does not model one of its viewer knobs (or
+the reference or a judged map is not known), before the card is looked
+for; 3 without a card; non-zero with no result when jax, jaxlib, flax or
+granite_tpu is loaded.
 """
 
 import os
@@ -105,14 +108,20 @@ def main(argv=None) -> int:
     os.environ["USE_FLAX"] = "0"
     import torch
     torch.set_num_threads(HOST_THREADS)
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, ROOT)
+    from gbench.cell import ConfigError, reference_for
+    try:
+        reference_for(config)
+    except ConfigError as e:
+        eprint(f"{cell['config']} ({cfg_entry['file']}): {e}")
+        return 2
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < int(cell["chips"]):
         eprint(f"{args.workload} needs {cell['chips']} CUDA card(s); "
                f"available: {torch.cuda.is_available()}, "
                f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 3
-    sys.path.insert(0, HERE)
-    sys.path.insert(0, ROOT)
     from gbench import timing
     from gbench.cell import compare, run_cell
     from gbench.roofline import b2_frame_bound, b4_bound
@@ -140,6 +149,8 @@ def main(argv=None) -> int:
            "setup_s": res["setup_s"]}
     metrics: dict = {}
     if args.trace:
+        # what a per-layer reader may read besides the run's readings
+        res["ref"], res["config"] = ref, config
         pos, rot = res["poses"]["positions"], res["poses"]["rotations"]
         mv = config["viewer"].get("rasterMaxVisible", 0)
         res["b2_bound_ms"] = [
